@@ -18,19 +18,35 @@ a non-zero exit code and no result line:
             blocks a window) and at the SCM-only chip length 78 spec, with
             ``first`` both ways; the kernel's time (CUDA events, L2 flushed
             before each launch), the plain version's, and the bound.
-4. cli      ``python -m rtlamr_tpu_torch`` in-process on the golden capture
+4. k2       the channelizer kernel against its plain PyTorch version on
+            the card, byte for byte, at N = 4, 12 and 32 channels over a
+            ragged frame count, with the stream head's zero history and with
+            a carried history; then at full width (N = 12, 8,388,608 frames)
+            its time (CUDA events, L2 flushed before each launch), the plain
+            version's, the bound, and what ``-Xptxas -v`` says about it.
+5. cli      ``python -m rtlamr_tpu_torch`` in-process on the golden capture
             ``tests/fixtures/sample.bin``: exactly its 14 SCM messages; the
             same through ``WindowDecoder`` with block indices, also with one
             candidate slot a window, so that windows escalate to the
             high-capacity program and to the exact host path.
-5. decode   the main path: four 1024-block windows of a synthetic
+6. decode   the narrowband path: four 1024-block windows of a synthetic
             all-protocol capture fed through ``WindowDecoder.feed`` in the
             CLI's chunk size; the decoded set equals the planted set. Prints
             samples/s, where the host time of a window goes, and the device
             time and kernel count of one window program.
-6. batch    the same capture device-resident through
+7. batch    the same capture device-resident through
             ``decode_staged_batch``: the same message stream.
-7. the kernels line, the card line, and the result line.
+8. wideband the wideband path at full width: 12 channels at chip length 72,
+            1024-block windows, two full super-steps and a flushed partial
+            one of a synthetic capture (``bench_wideband.py``'s recipe)
+            through ``WidebandDecoder.feed`` in the CLI's chunk size; the
+            decoded (channel, type, id) set equals the planted set. Prints
+            wideband samples/s, where the host time of a super-step goes,
+            and the device time of one super-step.
+9. wideband_cli  ``python -m rtlamr_tpu_torch -channels=4`` in-process on a
+            small four-channel capture: exactly its planted (channel, id)
+            set.
+10. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version do not count.
@@ -38,6 +54,7 @@ after; launches made to compare a kernel with its plain version do not count.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -46,6 +63,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,9 +73,16 @@ from rtlamr_tpu_torch.cli.main import main as cli_main
 from rtlamr_tpu_torch.decoder import WindowDecoder
 from rtlamr_tpu_torch.decoder import pipeline as pipeline_mod
 from rtlamr_tpu_torch.ops import build
+from rtlamr_tpu_torch.ops.channelizer import ChannelizerSpec
+from rtlamr_tpu_torch.ops.channelizer_fused import (
+    channelize_requantize_fused,
+    channelize_requantize_plain,
+)
 from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed
 from rtlamr_tpu_torch.ops.spec import make_frontend_spec, staged_geometry
 from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
+from rtlamr_tpu_torch.parallel import WidebandDecoder
+from rtlamr_tpu_torch.parallel import wideband as wideband_mod
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
 from rtlamr_tpu_torch.ref import synth
@@ -65,9 +90,12 @@ from rtlamr_tpu_torch.ref import synth
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_BIN = os.path.join(ROOT, "tests", "fixtures", "sample.bin")
 ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
+KERNELS = ("decode_stencil", "channelizer")  # csrc/<name>.cu
+WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM rate, and the 32-bit rate outside
-#: the tensor cores, the table's rate for the stencil's int32 work.
+#: the tensor cores (67 TFLOP/s float32), the table's rate for the
+#: stencil's int32 work and the channelizer's float32 work.
 HBM_BYTES_PER_S = 3.35e12
 OPS_32BIT_PER_S = 67e12
 
@@ -270,15 +298,20 @@ def phase_device():
     return card
 
 
+def ptxas_lines(name: str):
+    """What ``-Xptxas -v`` said about registers, shared memory and spills."""
+    log = str(build.BUILD_LOG[name]["log"])
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "smem" in ln or "spill" in ln]
+
+
 def phase_build():
     t0 = time.perf_counter()
-    build.build_many(["decode_stencil"])
+    build.build_many(KERNELS)  # one nvcc per source, all started together
     secs = time.perf_counter() - t0
-    info = build.BUILD_LOG["decode_stencil"]
-    ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
-    emit("build", kernels=["decode_stencil"], seconds=round(secs, 3),
-         nvcc_seconds=round(float(info["seconds"]), 3), ptxas=ptxas)
+    emit("build", kernels=list(KERNELS), seconds=round(secs, 3),
+         nvcc_seconds={k: round(float(build.BUILD_LOG[k]["seconds"]), 3) for k in KERNELS},
+         ptxas={k: ptxas_lines(k) for k in KERNELS})
 
 
 def phase_k1(card: str, capture: np.ndarray):
@@ -469,6 +502,314 @@ def phase_batch(iq: np.ndarray, want_msgs) -> int:
     return launches
 
 
+def channelizer_work(spec: ChannelizerSpec, frames: int):
+    """(bytes, float32 ops) the channelizer function needs: the chunk and
+    the history read once, the N channel rows written once; per frame
+    4 N P branch products and sums, 8 N^2 mix products and sums, 6 N for
+    the DC removal (mask, shift, two conversions, two subtractions) and
+    12 N for the requantize (two adds, two roundings, four clamps, two
+    conversions, shift, or)."""
+    n, p = spec.n_channels, spec.taps_per_branch
+    n_bytes = 2 * n * frames + 2 * n * p + 2 * n * frames
+    ops = frames * (4 * n * p + 8 * n * n + 18 * n)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_32BIT_PER_S * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    return n_bytes, ops, max(t_bytes, t_ops), bound_by
+
+
+def u16_diff(a: torch.Tensor, b: torch.Tensor):
+    """(positions that differ, largest difference of one u8 component)."""
+    x, y = a.to(torch.int32), b.to(torch.int32)
+    err = max(int(((x & 255) - (y & 255)).abs().max()), int(((x >> 8) - (y >> 8)).abs().max()))
+    return int((x != y).sum()), err
+
+
+def random_u16(rng, n_elems: int, dev) -> torch.Tensor:
+    """Seeded random interleaved u8 IQ as its u16 pair view, on ``dev``."""
+    return torch.from_numpy(rng.integers(0, 256, 2 * n_elems, dtype=np.uint8).view(np.uint16)).to(dev)
+
+
+def phase_k2(card: str):
+    dev = torch.device("cuda")
+    f = 3 * 8192 + 640 + 37  # ragged: the last 128-frame tile holds 37 frames
+    max_err = 0
+    for n in (4, 12, 32):
+        spec = ChannelizerSpec(n_channels=n)
+        p = spec.history_frames
+        rng = np.random.default_rng(100 + n)
+        s1, s2 = random_u16(rng, n * f, dev), random_u16(rng, n * f, dev)
+        zero = torch.zeros(p * n, dtype=torch.uint16, device=dev)
+        for label, hist, chunk, first in (("head", zero, s1, True),
+                                          ("carried", s1[(f - p) * n :], s2, False)):
+            got = channelize_requantize_fused(spec, hist, chunk, first)
+            want = channelize_requantize_plain(spec, hist, chunk, first)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (n, f) and got.dtype == want.dtype,
+                  f"k2 N={n} {label}: shape/dtype {got.shape} {want.shape}")
+            differ, err = u16_diff(got, want)
+            max_err = max(max_err, err)
+            check(differ == 0, f"k2 N={n} {label}: {differ} samples differ (max {err} LSB)")
+            # Into rows wider than the frames: the partial last tile writes
+            # nothing past column f.
+            rows = torch.zeros((n, f + 256), dtype=torch.uint16, device=dev)
+            channelize_requantize_fused(spec, hist, chunk, first, out=rows[:, :f])
+            torch.cuda.synchronize()
+            check(torch.equal(rows[:, :f].view(torch.int16), want.view(torch.int16))
+                  and not bool(rows[:, f:].view(torch.int16).any()),
+                  f"k2 N={n} {label}: strided output differs or overruns the tail")
+        emit("k2_parity", n=n, frames=f, histories=["head", "carried"], exact=True)
+
+    # Full width, as the wideband path runs it: N = 12, one super-step's
+    # frames, written into the columns of a staged batch behind the halo.
+    n, w = WIDE_CHANNELS, 8 * 1024 * 1024
+    spec = ChannelizerSpec(n_channels=n)
+    p = spec.history_frames
+    rng = np.random.default_rng(7)
+    chunk = random_u16(rng, n * w, dev)
+    hist = random_u16(rng, n * p, dev)
+    wide_spec = make_frontend_spec(build_decoder_config([new_parser(x, 72) for x in ALL]), 1024)
+    assert wide_spec.window == w
+    hs = wide_spec.halo_staged
+    staged = torch.zeros((n, staged_geometry(wide_spec).staged_samples),
+                         dtype=torch.uint16, device=dev)
+    out = staged[:, hs : hs + w]
+    channelize_requantize_fused(spec, hist, chunk, False, out=out)
+    want = channelize_requantize_plain(spec, hist, chunk, False)
+    torch.cuda.synchronize()
+    differ, err = u16_diff(out, want)
+    max_err = max(max_err, err)
+    check(differ == 0, f"k2 full width: {differ} samples differ (max {err} LSB)")
+    del want
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = event_ms(lambda: channelize_requantize_fused(spec, hist, chunk, False, out=out), flush=flush)
+    plain_ms = event_ms(lambda: channelize_requantize_plain(spec, hist, chunk, False), flush=flush)
+    del flush, staged
+    n_bytes, ops, bound_ms, bound_by = channelizer_work(spec, w)
+    emit("k2_time", card=card, n=n, frames=w, ms=ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, f32_ops=ops,
+         bound_ms_unfused=ops / (OPS_32BIT_PER_S / 2) * 1e3,
+         roofline_share=bound_ms / ms, max_abs_err=max_err,
+         ptxas=ptxas_lines("channelizer"))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": max_err}
+
+
+def render_wideband_sliced(total: int, channel_bursts, n: int, chip_length: int,
+                           amplitude: float, noise: float, seed: int) -> np.ndarray:
+    """``synth.render_wideband``'s signal (each burst's chip envelope on a
+    carrier at its channel's centre, complex Gaussian noise, u8 at DC 127.5)
+    rendered in slices on a few threads and kept only as u8 bytes, so a
+    full-width capture needs neither a complex128 array nor minutes of one
+    core. The noise of each slice comes from its own seeded generator."""
+    total_wide = total * n
+    rng = np.random.default_rng(seed)
+    spans = []
+    for channel, burst in channel_bursts:
+        chips = np.asarray(burst.chips, np.float64)
+        start = burst.offset * n
+        end = min(start + chips.size * chip_length * n, total_wide)
+        spans.append((start, end, channel, chips, rng.uniform(0, 2 * np.pi)))
+    out = np.empty(2 * total_wide, np.uint8)
+    step = 1 << 22
+
+    def render(k: int) -> None:
+        lo, hi = k * step, min((k + 1) * step, total_wide)
+        g = np.random.default_rng([seed, k])
+        re = g.standard_normal(hi - lo, dtype=np.float32) * np.float32(noise) + np.float32(127.5)
+        im = g.standard_normal(hi - lo, dtype=np.float32) * np.float32(noise) + np.float32(127.5)
+        for start, end, channel, chips, phase in spans:
+            a, b = max(start, lo), min(end, hi)
+            if a >= b:
+                continue
+            t = np.arange(a, b)
+            env = amplitude * chips[(t - start) // (chip_length * n)]
+            ang = 2 * np.pi * channel * t / n + phase
+            re[a - lo : b - lo] += (env * np.cos(ang)).astype(np.float32)
+            im[a - lo : b - lo] += (env * np.sin(ang)).astype(np.float32)
+        out[2 * lo : 2 * hi : 2] = np.clip(np.rint(re), 0, 255)
+        out[2 * lo + 1 : 2 * hi : 2] = np.clip(np.rint(im), 0, 255)
+
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(render, range(-(-total_wide // step))))
+    return out
+
+
+def build_wideband_capture(cfg, n: int, total: int):
+    """bench_wideband.py's capture recipe: SCM, IDM and R900 bursts in turn
+    every PacketLength + 5 blocks, round-robin over the channels, amplitude
+    90, noise 2, seed 7. Returns the u8 wideband IQ and the planted set of
+    (channel, message type, meter id)."""
+    gap = cfg.packet_length + 5 * cfg.block_size
+    bursts, planted = [], set()
+    offset, i = cfg.block_size, 0
+    while offset + cfg.packet_length < total - cfg.packet_length:
+        c = i % n
+        if i % 3 == 0:
+            bits = synth.make_scm_bits(meter_id=1_000_000 + i, consumption=i)
+            bursts.append((c, synth.bits_to_burst(bits, offset)))
+            planted.add((c, "SCM", 1_000_000 + i))
+        elif i % 3 == 1:
+            bursts.append((c, synth.bits_to_burst(synth.make_idm_bits(serial=2_000_000 + i), offset)))
+            planted.add((c, "IDM", 2_000_000 + i))
+        else:
+            digits = synth.make_r900_symbols(meter_id=3_000_000 + i)
+            bursts.append((c, synth.r900_burst(digits, offset)))
+            planted.add((c, "R900", 3_000_000 + i))
+        offset += gap
+        i += 1
+    wb = render_wideband_sliced(total, bursts, n, cfg.chip_length,
+                                amplitude=90.0, noise=2.0, seed=7)
+    return wb, planted
+
+
+def phase_wideband(card: str, window_blocks: int = 1024):
+    n = WIDE_CHANNELS
+
+    def fresh():
+        return WidebandDecoder([new_parser(x, 72) for x in ALL], n_channels=n,
+                               window_blocks=window_blocks, max_hits=256)
+
+    dec = fresh()
+    w = dec.spec.window
+    t0 = time.perf_counter()
+    wb, planted = build_wideband_capture(dec.cfg, n, 2 * w + w // 4)
+    render_s = time.perf_counter() - t0
+    chunk = max(n * dec.cfg.block_size2, 1 << 18)  # the CLI's chunk size
+
+    def feed_all(d, data):
+        msgs = []
+        for pos in range(0, data.size, chunk):
+            msgs.extend(d.feed(data[pos : pos + chunk]))
+        msgs.extend(d.flush())
+        return msgs
+
+    feed_all(fresh(), wb[: dec.window_bytes])  # warm-up: allocator, pinned pools
+    torch.cuda.synchronize()
+
+    # Where the host time of a super-step goes. The timed calls nest:
+    # _process_chunk > {_wideband_step > decode_windows_scan, _enqueue_fetch,
+    # _complete > {_fetch, _parse_window of each channel}}; flush's drain
+    # calls _complete outside _process_chunk.
+    clock = HostClock()
+    for name in ("_process_chunk", "_complete", "drain"):
+        clock.wrap(dec, name)
+    clock.wrap(wideband_mod, "_wideband_step")
+    clock.wrap(wideband_mod, "decode_windows_scan")
+    clock.wrap(dec._chan[0], "_enqueue_fetch")
+    clock.wrap(WindowDecoder, "_fetch")
+    for c in dec._chan:
+        clock.wrap(c, "_parse_window")
+    decode_stencil.launches = 0
+    channelize_requantize_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        msgs = feed_all(dec, wb)
+    finally:
+        clock.restore()
+    elapsed = time.perf_counter() - t0
+    k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+    s = clock.s
+    steps = dec._window_index
+    snap = dec.metrics_snapshot()
+    got = {(c, m.msg_type(), m.meter_id()) for c, _, m in msgs}
+    check(got == planted, f"wideband: missing {sorted(planted - got)[:8]}, "
+          f"extra {sorted(got - planted)[:8]}")
+    check(len(msgs) == len(planted), f"wideband: {len(msgs)} messages for "
+          f"{len(planted)} planted packets")
+    check(steps >= 3 and k2 == steps, f"wideband: {k2} channelizer launches, {steps} super-steps")
+    check(k1 == snap["windows_decoded"] + snap["hit_overflows"] and k1 >= n * steps,
+          f"wideband: {k1} stencil launches for {snap['windows_decoded']} windows")
+    complete_in_steps = s["_complete"] - s["drain"]
+    host_ms = {k: v * 1e3 / steps for k, v in {
+        "h2d": (s["_process_chunk"] - s["_wideband_step"] - s["_enqueue_fetch"]
+                - complete_in_steps),
+        "stage_and_enqueue_k2": s["_wideband_step"] - s["decode_windows_scan"],
+        "enqueue_window_programs": s["decode_windows_scan"],
+        "enqueue_d2h": s["_enqueue_fetch"],
+        "wait_for_card": s["_fetch"],
+        "parse": s["_parse_window"],
+        "unpack_and_dedup": s["_complete"] - s["_fetch"] - s["_parse_window"],
+        "feed_other": elapsed - s["_process_chunk"] - s["drain"],
+    }.items()}
+
+    # Device time of one super-step on a planted chunk (not the first).
+    dev = dec.device
+    wbytes = dec.window_bytes
+    u16 = torch.from_numpy(wb[wbytes : 2 * wbytes].view(np.uint16)).to(dev)
+    hist = torch.from_numpy(wb[wbytes - 2 * n * 8 : wbytes].view(np.uint16)).to(dev)
+    tail = torch.zeros((n, dec.spec.halo_staged), dtype=torch.uint16, device=dev)
+
+    def step():
+        return wideband_mod._wideband_step(dec.chspec, dec.spec, hist, u16, tail, False)
+
+    step_ms = event_ms(step, reps=3, warm=1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        step()
+    enqueue_ms = (time.perf_counter() - t) / 3 * 1e3
+    torch.cuda.synchronize()
+    kernels, busy_ms, top = profile_window(step)
+    samples = wb.size // 2
+    emit("wideband", card=card, channels=n, window_blocks=window_blocks,
+         super_steps=steps, windows_decoded=snap["windows_decoded"],
+         messages=len(msgs), planted=len(planted), launches_k1=k1, launches_k2=k2,
+         wideband_samples=samples, seconds=elapsed,
+         wideband_samples_per_s=samples / elapsed, render_seconds=render_s,
+         feed_to_emit_ms_max=max(c.metrics.extra.get("feed_to_emit_ms_max", 0.0)
+                                 for c in dec._chan),
+         hit_overflows=snap["hit_overflows"], host_ms_per_super_step=host_ms,
+         super_step_ms=step_ms, super_step_host_enqueue_ms=enqueue_ms,
+         super_step_kernels=kernels, super_step_kernel_ms=busy_ms,
+         super_step_top_kernels=top)
+    return k1, k2
+
+
+def phase_wideband_cli():
+    """tests/test_wideband.py's six-packet four-channel capture through the
+    CLI with -crosschanneldedup: exactly the planted packets. (In
+    tests/test_cli.py's four-packet version of it the R900 burst's copy on
+    channel 0 also decodes and, as the lowest channel, wins the dedup, in
+    the JAX CLI as in the port.)"""
+    cfg = build_decoder_config([new_parser(x, 8) for x in ALL])
+    window = 24 * cfg.block_size
+    planted = [
+        (0, 111001, synth.bits_to_burst(synth.make_scm_bits(meter_id=111001, consumption=1), 3000)),
+        (1, 222002, synth.bits_to_burst(synth.make_scm_bits(meter_id=222002, consumption=2),
+                                        window - 700)),
+        (2, 333003, synth.r900_burst(synth.make_r900_symbols(meter_id=333003), 5000)),
+        (3, 444004, synth.bits_to_burst(synth.make_idm_bits(serial=444004), 300)),
+        (0, 555005, synth.bits_to_burst(synth.make_scm_bits(meter_id=555005, consumption=5),
+                                        20000)),
+        (2, 666006, synth.bits_to_burst(synth.make_scm_bits(meter_id=666006, consumption=6),
+                                        2 * window - 2000)),
+    ]
+    wb = synth.render_wideband(3 * window, [(c, b) for c, _, b in planted], 4, 8,
+                               amplitude=90.0, noise=2.0, seed=21)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wideband.bin")
+        wb.tofile(path)
+        argv = ["-channels=4", "-msgtype=all", "-symbollength=8", "-windowblocks=24",
+                "-format=json", "-crosschanneldedup=true", f"-fromfile={path}"]
+        decode_stencil.launches = 0
+        channelize_requantize_fused.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+    check(rc == 0, f"wideband_cli: exit code {rc}")
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+    got = [(r["Channel"], r["Message"].get("ID", r["Message"].get("ERTSerialNumber")))
+           for r in recs]
+    want = sorted((c, mid) for c, mid, _ in planted)
+    check(sorted(got) == want, f"wideband_cli: {sorted(got)}, planted {want}")
+    check(k2 > 0 and k1 > 0, f"wideband_cli: launches k1 {k1}, k2 {k2}")
+    emit("wideband_cli", messages=len(recs), planted=len(planted), exact=True,
+         launches_k1=k1, launches_k2=k2)
+    return k1, k2
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -481,9 +822,13 @@ def main() -> int:
     spec = make_frontend_spec(cfg, 1024)
     iq, planted = build_capture(cfg, n_windows, spec.window, spec.halo)
     k1 = phase_k1(card, iq)
+    k2 = phase_k2(card)
     cli_launches = phase_cli()
     msgs, launches = phase_decode(card, iq, planted)
     batch_launches = phase_batch(iq, msgs)
+    del iq, msgs
+    wide_k1, wide_k2 = phase_wideband(card)
+    wcli_k1, wcli_k2 = phase_wideband_cli()
     print(json.dumps({"kernels": [{
         "name": "decode_stencil",
         "route": "cuda",
@@ -492,12 +837,29 @@ def main() -> int:
         "launches": launches,
         "launches_cli": cli_launches,
         "launches_batch": batch_launches,
+        "launches_wideband": wide_k1,
+        "launches_wideband_cli": wcli_k1,
         "parity": "exact",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
+        "library_ms": None,
+        "card": card,
+    }, {
+        "name": "channelizer",
+        "route": "cuda",
+        "source": "rtlamr_tpu_torch/csrc/channelizer.cu",
+        "replaces": "rtlamr_tpu/ops/pallas_channelizer.py:58",
+        "launches": wide_k2,
+        "launches_wideband_cli": wcli_k2,
+        "parity": "exact",
+        "max_abs_err": k2["max_abs_err"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
         "library_ms": None,
         "card": card,
     }]}), flush=True)

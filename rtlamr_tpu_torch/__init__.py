@@ -17,8 +17,15 @@ layer and imports nothing of the JAX package.
   the CRC-16 / Reed-Solomon gates in PyTorch ops.
 - ``ops/frontend.py``  the packed per-window result buffer and the K-window
   batch.
+- ``ops/channelizer.py`` the polyphase filter bank, DFT mix and requantize in
+  plain PyTorch; ``ops/channelizer_fused.py`` the fused channelizer: the
+  CUDA kernel ``csrc/channelizer.cu`` for CUDA tensors, its plain version
+  for CPU tensors.
 - ``decoder/``         the streaming ``WindowDecoder``.
-- ``cli/``             ``python -m rtlamr_tpu_torch`` (narrowband, one card).
+- ``parallel/``        the wideband ``WidebandDecoder`` (channelize, then one
+  window program per channel).
+- ``cli/``             ``python -m rtlamr_tpu_torch``, narrowband and
+  ``-channels N`` wideband, one card.
 
 Entry points run on the card (``device=None`` means ``cuda``) and raise when
 there is none; pass ``device="cpu"`` to run the plain versions on the CPU.

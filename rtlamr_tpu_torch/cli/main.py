@@ -1,18 +1,22 @@
-"""rtlamr CLI — receiver lifecycle and the streaming loop (narrowband).
+"""rtlamr CLI — receiver lifecycle and the streaming loop.
 
-Port of the JAX package's ``cli/main.py`` for one card and one channel,
-mirroring the reference's orchestration (main.go:59-368): flag handling and
-env override, receiver construction, tuner configuration over rtl_tcp,
-filter-chain assembly, the steady-state decode loop with cross-block dedup,
--single one-shot behavior, -duration time limit, and -samplefile dumping.
-The three-goroutine pipeline becomes: read a chunk -> feed the window
-decoder (CUDA stencil kernel + search on the card) -> encode filtered,
-deduped messages.
+Port of the JAX package's ``cli/main.py`` for one card, mirroring the
+reference's orchestration (main.go:59-368): flag handling and env override,
+receiver construction, tuner configuration over rtl_tcp, filter-chain
+assembly, the steady-state decode loop with cross-block dedup, -single
+one-shot behavior, -duration time limit, and -samplefile dumping. The
+three-goroutine pipeline becomes: read a chunk -> feed the decoder -> encode
+filtered, deduped messages. The decoder is the narrowband
+:class:`~rtlamr_tpu_torch.decoder.WindowDecoder` (CUDA stencil kernel +
+search on the card) or, with ``-channels`` > 1, the
+:class:`~rtlamr_tpu_torch.parallel.WidebandDecoder` (CUDA channelizer
+kernel, then the same window program for every channel), with
+``-crosschanneldedup``.
 
 Not ported yet, and refused with exit code 1 until their slice lands:
-``-channels`` > 1 (wideband), ``-mesh`` (multi-GPU), ``-coordinator``
-(multi-host), ``-checkpoint`` (stream checkpoints) and ``-ingest=native``
-(the C++ transport).
+``-mesh`` (multi-GPU, also with ``-channels``), ``-coordinator``
+(multi-host), ``-checkpoint`` (stream checkpoints, narrowband and wideband)
+and ``-ingest=native`` (the C++ transport).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..io.capture import (
     StdinSource,
 )
 from ..io.rtltcp import RtlTcpClient
+from ..parallel.wideband import WidebandDecoder
 from ..protocols import new_parser
 from .encoders import LogMessage, make_encoder
 from .filters import FilterChain, MeterIDFilter, MeterTypeFilter, UniqueFilter
@@ -74,9 +79,10 @@ def _refuse_unported(fs: FlagSet) -> None:
     if channels < 1:
         _log(f"invalid -channels value {channels} (want >= 1)")
         raise SystemExit(1)
+    mesh = ("-channels with -mesh (channel x time mesh)" if channels > 1
+            else "-mesh (time-sharded decode)")
     unported = [
-        (channels > 1, "-channels > 1 (wideband decode)", "the wideband slice"),
-        (fs.value("mesh"), "-mesh (time-sharded decode)", "the multi-GPU slice"),
+        (fs.value("mesh"), mesh, "the multi-GPU slice"),
         (bool(fs.value("coordinator")), "-coordinator (multi-host decode)",
          "the multi-host slice"),
         (bool(fs.value("checkpoint")), "-checkpoint (stream checkpoints)",
@@ -117,15 +123,49 @@ class Receiver:
 
         self.fc = build_filter_chain(fs)
         self._check_ingest()
-        self.decoder = WindowDecoder(
-            self.parsers,
-            window_blocks=fs.value("windowblocks"),
-            max_hits=fs.value("maxhits"),
-            filter_fn=self.fc.match,
-            device=device,
-        )
+        self.wideband = fs.value("channels") > 1
+        if self.wideband:
+            # One stream at channels*samplerate, channelized on the card
+            # and decoded per channel (parallel/wideband.py).
+            self.decoder = WidebandDecoder(
+                self.parsers,
+                n_channels=fs.value("channels"),
+                window_blocks=fs.value("windowblocks"),
+                max_hits=fs.value("maxhits"),
+                filter_fn=self.fc.match,
+                cross_channel_dedup=fs.value("crosschanneldedup"),
+                device=device,
+            )
+        else:
+            self.decoder = WindowDecoder(
+                self.parsers,
+                window_blocks=fs.value("windowblocks"),
+                max_hits=fs.value("maxhits"),
+                filter_fn=self.fc.match,
+                device=device,
+            )
         self.cfg = self.decoder.cfg
         self.client: Optional[RtlTcpClient] = None
+
+    def center_freq(self) -> int:
+        """The capture's RF center (an explicit -centerfreq wins)."""
+        if self.fs["centerfreq"].set_explicitly:
+            return self.fs.value("centerfreq")
+        return self.cfg.center_freq
+
+    @property
+    def native_rate(self) -> int:
+        """The input sample rate the decoder expects: channels x the
+        decoder's rate in wideband mode."""
+        return self.decoder.wideband_sample_rate if self.wideband else self.cfg.sample_rate
+
+    def log_channel_plan(self) -> None:
+        """Startup per-channel center-frequency dump (wideband mode)."""
+        freqs = self.decoder.channel_center_freqs(self.center_freq())
+        _log(f"wideband: {self.decoder.n_channels} channels at "
+             f"{self.native_rate} S/s total")
+        for c, f in enumerate(freqs):
+            _log(f"  channel {c}: {f / 1e6:.6f} MHz")
 
     def _check_ingest(self) -> None:
         """Resolve -ingest: auto and python both mean the Python
@@ -148,22 +188,16 @@ class Receiver:
                 return StdinSource()
             return FileSource(fromfile)
 
-        cfg = self.cfg
         client = RtlTcpClient(fs.value("server"))
         info = client.connect()
         self.client = client
 
-        center_freq = (
-            fs.value("centerfreq")
-            if fs["centerfreq"].set_explicitly
-            else cfg.center_freq
-        )
         sample_rate = (
             fs.value("samplerate")
             if fs["samplerate"].set_explicitly
-            else cfg.sample_rate
+            else self.native_rate
         )
-        client.set_center_freq(center_freq)
+        client.set_center_freq(self.center_freq())
         client.set_sample_rate(sample_rate)
 
         gain_flags = ("gainbyindex", "tunergainmode", "tunergain", "agcmode")
@@ -203,6 +237,8 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     # config at receiver construction (main.go:124, decode.go:73-90), for
     # both live and -fromfile runs.
     _log(receiver.cfg.describe())
+    if receiver.wideband:
+        receiver.log_channel_plan()
     dumper = SampleDumper(fs.value("samplefile"))
     encoder = make_encoder(fs.value("format"), out, fs.value("samplefile"))
 
@@ -216,10 +252,15 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
 
     source = receiver.open_source()
     dec = receiver.decoder
+    wideband = receiver.wideband
+    nch = dec.n_channels if wideband else 1
     live = not fs.value("fromfile")
-    watchdog = RateWatchdog(dec.cfg.sample_rate, warn=_log) if live else None
+    watchdog = RateWatchdog(receiver.native_rate, warn=_log) if live else None
 
-    block_bytes = dec.cfg.block_size2
+    # In wideband mode the ring (and -samplefile dumps) hold WIDEBAND bytes:
+    # channel-block b of every channel comes from the same wideband byte
+    # range, so one ring block = nch * block_size2 bytes.
+    block_bytes = nch * dec.cfg.block_size2
     # Latency preset reads one reference block per iteration (the Go
     # receiver's own granularity, main.go:156-205) instead of the large
     # throughput-oriented chunks, so data never waits in the read buffer.
@@ -233,11 +274,20 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     ring = SampleRing(
         dumper,
         block_bytes,
-        dec.cfg.buffer_length * 2,
+        nch * dec.cfg.buffer_length * 2,
         max_lag_blocks=2 * (dec.window_bytes // block_bytes)
         + ring_cap_blocks
         + 4,
     )
+
+    def by_block(msgs):
+        """Decode results as block-major (block, channel, msg):
+        WindowDecoder yields (block, msg); WidebandDecoder yields (channel,
+        block, msg) channel-major, re-sorted so the ring walk advances
+        monotonically."""
+        if wideband:
+            return [(b, c, m) for c, b, m in sorted(msgs, key=lambda t: (t[1], t[0]))]
+        return [(b, None, m) for b, m in msgs]
 
     dropped_seen = 0
     stop = False
@@ -263,7 +313,8 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
                             f"{dropped} bytes dropped so far"
                         )
                     dropped_seen = dropped
-                    dec.metrics.extra["bytes_dropped"] = dropped
+                    if not wideband:
+                        dec.metrics.extra["bytes_dropped"] = dropped
                 if chunk.size == 0:
                     msgs = dec.flush()
                 else:
@@ -277,15 +328,16 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
                 # Messages arrive ordered by block; replay the reference's
                 # per-block ring walk (main.go:225-230) so Offset/Length and
                 # the post-block buffer dump match main.go:242-284 exactly.
-                for block, group in itertools.groupby(msgs, key=lambda t: t[0]):
+                for block, group in itertools.groupby(by_block(msgs), key=lambda t: t[0]):
                     ring.advance_to(block)
-                    for _b, msg in group:
+                    for _b, chan, msg in group:
                         encoder.encode(
                             LogMessage(
                                 time=datetime.datetime.now(),
                                 offset=dumper.offset(),
                                 length=ring.length,
                                 msg=msg,
+                                channel=chan,
                             )
                         )
                         if single:
@@ -305,7 +357,8 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
         _log("interrupted")
     finally:
         if fs.value("metrics"):
-            _log("metrics:", dec.metrics.snapshot())
+            snap = dec.metrics_snapshot() if wideband else dec.metrics.snapshot()
+            _log("metrics:", snap)
         source.close()
         dumper.close()
     return 0

@@ -1,0 +1,360 @@
+"""Wideband multi-channel decode — the frequency-parallel receiver.
+
+Port of the JAX package's ``parallel/wideband.py``. It takes ONE wideband
+IQ stream covering many ERT hop slabs, channelizes it on the card
+(``ops/channelizer_fused.py``: the CUDA kernel K2) and decodes every channel
+with the same window program (the CUDA decode stencil K1 plus the search).
+
+One super-step (:func:`_wideband_step`) consumes ``2 * N * W`` wideband
+bytes:
+
+  u16 view of the bytes -> card -> K2 (branches, DFT mix, requantize)
+  written straight into an (N, staged_samples) staged batch behind each
+  channel's carried halo -> N window programs -> one (N, P) packed result
+  buffer, fetched with one pinned device-to-host copy.
+
+Each channel is an independent sample stream with the reference's exact
+single-receiver semantics: its own overlap-save carry, first-window zero
+history, block numbering and adjacent-block digest dedup (main.go:252-292),
+held as per-channel :class:`~rtlamr_tpu_torch.decoder.WindowDecoder` parse
+states over one shared FrontendSpec. Messages are returned as
+``(channel, block, message)`` triples.
+
+Adjacent-channel ghosts: a very strong OOK burst splatters sidelobe energy
+into the neighbouring slab, where it can demodulate as the same packet.
+``cross_channel_dedup=True`` collapses same-digest messages seen on
+different channels in the same or adjacent block to the first
+(lowest-channel) copy; off by default, to keep strict per-channel receiver
+semantics.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..decoder.pipeline import WindowDecoder
+from ..device import DeviceLike, resolve_device
+from ..ops.channelizer import ChannelizerSpec, channel_offsets_hz
+from ..ops.channelizer_fused import channelize_requantize_fused
+from ..ops.frontend import decode_windows_scan
+from ..ops.spec import FrontendSpec, staged_geometry
+from ..protocols.base import Digest, Message, Parser, digest as mk_digest
+
+Triple = Tuple[int, int, Message]
+
+
+class CrossChannelDeduper:
+    """Optional adjacent-channel ghost dedup (module docstring): drops a
+    message whose digest another channel already emitted in the same or
+    adjacent block; processed in (block, channel) order so the lowest
+    channel wins. The one-block horizon matches the reference's dedup reach
+    (main.go:252-292)."""
+
+    def __init__(self):
+        self.seen: dict = {}
+
+    def filter(self, msgs, on_drop=None):
+        out = []
+        for c, b, m in sorted(msgs, key=lambda t: (t[1], t[0])):
+            d = mk_digest(m)
+            prev = self.seen.get(d)
+            if prev is not None and prev[1] != c and b - prev[0] <= 1:
+                if on_drop is not None:
+                    on_drop(c)
+                continue
+            self.seen[d] = (b, c)
+            out.append((c, b, m))
+        if out:
+            horizon = max(b for _, b, _ in out) - 1
+            self.seen = {d: (b, c) for d, (b, c) in self.seen.items() if b >= horizon}
+        return out
+
+
+def _wideband_step(
+    chspec: ChannelizerSpec,
+    spec: FrontendSpec,
+    wb_hist: torch.Tensor,
+    wb_new: torch.Tensor,
+    chan_tail: torch.Tensor,
+    first: bool,
+):
+    """One super-step on the chunk's device: wideband u16 -> packed results.
+
+    wb_hist: (P * N,) u16, the previous chunk's last P frames (frame-major;
+      ignored at the stream head, where ``first`` makes it read as 0.0).
+    wb_new: (N * W,) u16, the chunk's interleaved byte pairs.
+    chan_tail: (N, halo_staged) u16 carried per-channel staged halos.
+
+    Returns (packed (N, P) u8, new wb_hist, new chan_tail, staged (N, S)).
+    The staged batch is fresh each step: the parse of this step may
+    re-decode its rows (overflow escalation) after the next step began.
+    """
+    n = chspec.n_channels
+    w = spec.window
+    hs = spec.halo_staged
+    staged = torch.empty(
+        (n, staged_geometry(spec).staged_samples), dtype=torch.uint16, device=wb_new.device
+    )
+    staged[:, :hs] = chan_tail
+    staged[:, hs + w :].view(torch.int16).zero_()
+    channelize_requantize_fused(chspec, wb_hist, wb_new, first, out=staged[:, hs : hs + w])
+    new_tail = staged[:, w : w + hs].clone()
+    frame_tail = wb_new[(w - chspec.history_frames) * n :].clone()
+    packed = decode_windows_scan(spec, staged, [first] * n)
+    return packed, frame_tail, new_tail, staged
+
+
+class WidebandDecoder:
+    """Channelize-and-decode pipeline over one wideband stream.
+
+    Args:
+      parsers: registered protocol parsers (shared across channels).
+      n_channels: filter-bank size N; the wideband input rate must be
+        ``N * data_rate * chip_length`` (each channel lands at exactly the
+        rate the decoder expects, protocol/decode.go:133).
+      window_blocks/max_hits/filter_fn: per-channel decode program knobs
+        (see :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`).
+      cross_channel_dedup: collapse adjacent-channel ghosts.
+
+    The filter bank is :class:`ChannelizerSpec`'s default design (8 taps a
+    branch, cutoff 1/(2N)).
+      device: ``None`` (the card, ``cuda``) or ``"cpu"`` (plain PyTorch
+        versions). Raises when the card is asked for and there is none.
+    """
+
+    def __init__(
+        self,
+        parsers: Sequence[Parser],
+        n_channels: int,
+        window_blocks: Optional[int] = 64,
+        max_hits: int = 256,
+        filter_fn=None,
+        cross_channel_dedup: bool = False,
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.cross_channel_dedup = cross_channel_dedup
+        self.chspec = ChannelizerSpec(n_channels=n_channels)
+        self._chan = [
+            WindowDecoder(
+                parsers,
+                window_blocks=window_blocks,
+                max_hits=max_hits,
+                filter_fn=filter_fn,
+                device=self.device,
+            )
+            for _ in range(n_channels)
+        ]
+        self.spec = self._chan[0].spec
+        self.cfg = self._chan[0].cfg
+        self.reset()
+
+    def reset(self) -> None:
+        n, p = self.chspec.n_channels, self.chspec.history_frames
+        for c in self._chan:
+            c.reset()
+        self._wb_hist = torch.zeros(p * n, dtype=torch.uint16, device=self.device)
+        self._chan_tail = torch.zeros(
+            (n, self.spec.halo_staged), dtype=torch.uint16, device=self.device
+        )
+        self._first = True
+        self._window_index = 0
+        self._plist: List[np.ndarray] = []
+        self._psize = 0
+        self._inflight = None
+        self._xchan = CrossChannelDeduper()
+
+    @property
+    def n_channels(self) -> int:
+        return self.chspec.n_channels
+
+    @property
+    def window_bytes(self) -> int:
+        """Wideband bytes consumed per super-step."""
+        return 2 * self.chspec.n_channels * self.spec.window
+
+    @property
+    def wideband_sample_rate(self) -> int:
+        return self.chspec.n_channels * self.cfg.sample_rate
+
+    def channel_center_freqs(self, wide_center_hz: int) -> np.ndarray:
+        """Absolute RF center frequency of each channel for a capture
+        centered at ``wide_center_hz`` (misc/modes.go channel math)."""
+        return wide_center_hz + channel_offsets_hz(self.chspec, self.cfg.sample_rate)
+
+    def metrics_snapshot(self) -> dict:
+        """Counters summed across channels."""
+        agg: dict = {}
+        for c in self._chan:
+            for k, v in c.metrics.snapshot().items():
+                if isinstance(v, (int, float)):
+                    agg[k] = agg.get(k, 0) + v
+        return agg
+
+    # -- state ----------------------------------------------------------------
+
+    def export_state(self) -> Dict[str, object]:
+        """The stream state as plain numpy/Python values, in the JAX
+        package's ``WidebandCheckpoint`` vocabulary: ``wb_hist`` as (2, N, P)
+        f32 DC-removed frames (zeros at the stream head), ``chan_tail``,
+        ``first``, ``window_index``, each channel's
+        :meth:`WindowDecoder.export_state`, the cross-channel ``xchan_seen``
+        rows and the unconsumed bytes. The in-flight super-step must be
+        drained first."""
+        if self._inflight is not None:
+            raise RuntimeError("export_state: drain() the in-flight super-step first")
+        n, p = self.chspec.n_channels, self.chspec.history_frames
+        if self._first:
+            hist = np.zeros((2, n, p), np.float32)
+        else:
+            v = self._wb_hist.cpu().numpy().reshape(p, n).T.astype(np.int32)
+            hist = np.stack([(v & 255), (v >> 8)]).astype(np.float32) - np.float32(127.5)
+        return {
+            "wb_hist": hist,
+            "chan_tail": self._chan_tail.cpu().numpy().copy(),
+            "first": bool(self._first),
+            "window_index": int(self._window_index),
+            "channels": [c.export_state() for c in self._chan],
+            "xchan_seen": [(tuple(d), b, c) for d, (b, c) in self._xchan.seen.items()],
+            "pending": self._pending.copy(),
+        }
+
+    def load_state(self, state: Dict[str, object]) -> None:
+        """Resume a stream from :meth:`export_state` values, or the same
+        values read from the JAX package's ``WidebandDecoder`` (its
+        ``_wb_hist``, ``_chan_tail``, ``_first``, ``_window_index``, per
+        channel decoder and ``_xchan.seen``)."""
+        self.reset()
+        n, p = self.chspec.n_channels, self.chspec.history_frames
+        hs = self.spec.halo_staged
+        hist = np.asarray(state["wb_hist"], np.float32)
+        tail = np.asarray(state["chan_tail"], np.uint16)
+        channels = list(state["channels"])
+        if hist.shape != (2, n, p) or tail.shape != (n, hs) or len(channels) != n:
+            raise ValueError(
+                f"load_state: history {hist.shape}, tails {tail.shape}, "
+                f"{len(channels)} channels; want (2, {n}, {p}), ({n}, {hs}), {n}"
+            )
+        first = bool(state["first"])
+        if not first:
+            # The history holds u8-derived samples minus 127.5: exact in f32.
+            u = hist.astype(np.float64) + 127.5
+            iu = np.round(u).astype(np.int64)
+            if not (np.array_equal(iu, u) and iu.min() >= 0 and iu.max() <= 255):
+                raise ValueError("load_state: wb_hist is not a u8-derived frame tail")
+            packed = (iu[0] | (iu[1] << 8)).T.reshape(-1).astype(np.uint16)
+            self._wb_hist = torch.from_numpy(packed).to(self.device)
+        self._chan_tail = torch.from_numpy(tail.copy()).to(self.device)
+        self._first = first
+        self._window_index = int(state["window_index"])
+        for c, st in zip(self._chan, channels):
+            c.load_state(st)
+        self._xchan.seen = {Digest(*d): (b, c) for d, b, c in state.get("xchan_seen", ())}
+        self._pending = np.array(state.get("pending", ()), np.uint8)
+
+    # -- streaming ------------------------------------------------------------
+
+    @property
+    def _pending(self) -> np.ndarray:
+        """Unconsumed wideband bytes (chunk list; one concatenate per
+        super-step instead of one per feed call)."""
+        if not self._plist:
+            return np.zeros(0, np.uint8)
+        if len(self._plist) > 1:
+            self._plist = [np.concatenate(self._plist)]
+        return self._plist[0]
+
+    @_pending.setter
+    def _pending(self, value: np.ndarray) -> None:
+        value = np.asarray(value, np.uint8)
+        self._plist = [value] if value.size else []
+        self._psize = int(value.size)
+
+    def feed(self, wb_bytes: np.ndarray) -> List[Triple]:
+        """Feed wideband IQ bytes; returns (channel, block, message).
+
+        The chunk is copied, so the caller may reuse its buffer at once."""
+        chunk = np.array(wb_bytes, np.uint8, copy=True).reshape(-1)
+        if chunk.size:
+            self._plist.append(chunk)
+            self._psize += int(chunk.size)
+        out: List[Triple] = []
+        wb = self.window_bytes
+        if self._psize >= wb:
+            buf = self._pending
+            n_win = buf.size // wb
+            for i in range(n_win):
+                out.extend(self._process_chunk(buf[i * wb : (i + 1) * wb]))
+            self._pending = buf[n_win * wb :]
+        return out
+
+    def flush(self) -> List[Triple]:
+        """Zero-pad and decode remaining full per-channel blocks; drain."""
+        bs_wide = 2 * self.chspec.n_channels * self.cfg.block_size
+        full_blocks = self._pending.size // bs_wide
+        out: List[Triple] = []
+        if full_blocks:
+            valid = self._pending[: full_blocks * bs_wide]
+            self._pending = self._pending[full_blocks * bs_wide :]
+            padded = np.zeros(self.window_bytes, np.uint8)
+            padded[: valid.size] = valid
+            out.extend(self._process_chunk(padded, valid_blocks=full_blocks))
+        out.extend(self.drain())
+        return out
+
+    def drain(self) -> List[Triple]:
+        if self._inflight is None:
+            return []
+        inflight, self._inflight = self._inflight, None
+        return self._complete(inflight)
+
+    def decode_capture(self, wb_bytes: np.ndarray) -> List[Triple]:
+        self.reset()
+        out = self.feed(np.asarray(wb_bytes, np.uint8))
+        out.extend(self.flush())
+        return out
+
+    # -- internals ------------------------------------------------------------
+
+    def _process_chunk(
+        self, chunk: np.ndarray, valid_blocks: Optional[int] = None
+    ) -> List[Triple]:
+        """Dispatch one super-step; complete the previous one (results
+        arrive one super-step late; flush() drains the tail)."""
+        u16 = torch.from_numpy(np.ascontiguousarray(chunk).view(np.uint16))
+        if self.device.type == "cuda":
+            # From pageable memory the copy has left ``chunk`` on return.
+            u16 = u16.to(self.device, non_blocking=True)
+        packed, self._wb_hist, self._chan_tail, staged = _wideband_step(
+            self.chspec, self.spec, self._wb_hist, u16, self._chan_tail, self._first
+        )
+        meta = (staged, self._first, valid_blocks, self._window_index)
+        now = time.monotonic()
+        for c in self._chan:
+            c._dispatch_times[self._window_index] = now
+        self._first = False
+        self._window_index += 1
+        out: List[Triple] = []
+        if self._inflight is not None:
+            prev, self._inflight = self._inflight, None
+            out.extend(self._complete(prev))
+        self._inflight = (self._chan[0]._enqueue_fetch(packed), meta)
+        return out
+
+    def _complete(self, inflight) -> List[Triple]:
+        handle, (staged, first, valid_blocks, window_index) = inflight
+        host = WindowDecoder._fetch(handle)  # ONE fetch for all channels
+        out: List[Triple] = []
+        for c, chan in enumerate(self._chan):
+            msgs = chan._complete_window(host[c], (staged[c], first, valid_blocks, window_index))
+            out.extend((c, b, m) for b, m in msgs)
+        if self.cross_channel_dedup:
+            out = self._xchan.filter(out, on_drop=self._count_ghost)
+        return out
+
+    def _count_ghost(self, c: int) -> None:
+        self._chan[c].metrics.messages_dropped_dup += 1

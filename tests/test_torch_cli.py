@@ -1,7 +1,8 @@
 """The port's CLI (``python -m rtlamr_tpu_torch``) against the JAX package's:
-the same output lines on the golden capture with the time field masked, the
-committed golden encoder fixtures, and a clear exit 1 for the modes this
-port does not run yet."""
+the same output lines on the golden capture and on a four-channel wideband
+capture (``-channels=4``) with the time field masked, the committed golden
+encoder fixtures, and a clear exit 1 for the modes this port does not run
+yet."""
 
 import contextlib
 import datetime
@@ -133,19 +134,22 @@ def test_encoder_matches_golden_fixture(proto, fmt):
     assert out.getvalue() == want
 
 
+UNPORTED = [
+    (["-mesh"], "multi-GPU"),
+    (["-coordinator=127.0.0.1:9999"], "multi-host"),
+    (["-checkpoint=ckpt"], "checkpoint"),
+    (["-ingest=native"], "native"),
+    (["-channels=4", "-mesh"], "multi-GPU"),
+    (["-channels=4", "-checkpoint=ckpt"], "checkpoint"),
+]
+
+
 @pytest.mark.parametrize(
-    "flag,words",
-    [
-        ("-channels=2", "wideband"),
-        ("-mesh", "multi-GPU"),
-        ("-coordinator=127.0.0.1:9999", "multi-host"),
-        ("-checkpoint=ckpt", "checkpoint"),
-        ("-ingest=native", "native"),
-    ],
+    "flags,words", UNPORTED, ids=[f"{' '.join(f)}-{w}" for f, w in UNPORTED]
 )
-def test_unported_modes_exit_1(flag, words, capsys):
+def test_unported_modes_exit_1(flags, words, capsys):
     with pytest.raises(SystemExit) as exc:
-        main(GOLDEN_ARGS + [flag], device="cpu")
+        main(GOLDEN_ARGS + flags, device="cpu")
     assert exc.value.code == 1
     err = capsys.readouterr().err
     assert "not ported" in err and words in err
@@ -238,3 +242,90 @@ def test_live_rtltcp_roundtrip(latency):
     assert cmds.get(0x02) == 32768 * 72  # derived sample rate
     assert 0x03 in cmds  # gain mode (auto)
     assert cmds.get(0x0E) == 1  # bias tee
+
+
+# ---------------------------------------------------------------------------
+# Wideband CLI (-channels N), mirroring tests/test_cli.py's wideband cases
+
+
+WIDEBAND_ARGS = ["-msgtype=all", "-symbollength=8", "-channels=4", "-windowblocks=24"]
+
+
+@pytest.fixture(scope="module")
+def wideband_capture(tmp_path_factory):
+    """tests/test_cli.py ``_wideband_capture``: four channels at chip length
+    8, one packet on each, written to a file."""
+    window = 24 * build_decoder_config([new_parser(n, 8) for n in
+                                        ("scm", "scm+", "idm", "r900")]).block_size
+    planted = [
+        (0, synth.bits_to_burst(synth.make_scm_bits(meter_id=111001, consumption=1), 3000)),
+        (1, synth.bits_to_burst(synth.make_scm_bits(meter_id=222002, consumption=2),
+                                window - 700)),
+        (2, synth.r900_burst(synth.make_r900_symbols(meter_id=333003), 5000)),
+        (3, synth.bits_to_burst(synth.make_idm_bits(serial=444004), 300)),
+    ]
+    wb = synth.render_wideband(3 * window, planted, 4, 8, amplitude=90.0, noise=2.0, seed=21)
+    path = tmp_path_factory.mktemp("wideband") / "wideband.bin"
+    wb.tofile(path)
+    return wb, str(path)
+
+
+def test_cli_wideband_matches_jax(wideband_capture, capsys):
+    """-channels=4 JSON lines equal the JAX CLI's; the channel plan is
+    logged at startup."""
+    argv = WIDEBAND_ARGS + ["-format=json", f"-fromfile={wideband_capture[1]}"]
+    rc, got = port_cli(argv)
+    err = capsys.readouterr().err
+    jrc, want = jax_cli(argv)
+    assert rc == jrc == 0
+    assert got.splitlines() == want.splitlines()
+    recs = [json.loads(ln) for ln in got.splitlines()]
+    assert list(recs[0]) == ["Time", "Offset", "Length", "Channel", "Type", "Message"]
+    assert {(r["Channel"], r["Message"].get("ID", r["Message"].get("ERTSerialNumber")))
+            for r in recs} >= {(0, 111001), (1, 222002), (2, 333003), (3, 444004)}
+    assert "wideband: 4 channels" in err
+    assert "channel 3:" in err
+
+
+def test_cli_wideband_plain_and_dedup(wideband_capture):
+    """The plain format carries the Channel: tag; -crosschanneldedup parses
+    and gives the JAX CLI's lines."""
+    argv = WIDEBAND_ARGS + ["-crosschanneldedup=true", f"-fromfile={wideband_capture[1]}"]
+    rc, got = port_cli(argv)
+    jrc, want = jax_cli(argv)
+    assert rc == jrc == 0
+    lines = got.strip().splitlines()
+    assert lines and all("Channel:" in ln for ln in lines)
+    assert got.splitlines() == want.splitlines()
+
+
+def test_cli_wideband_live_tunes_wideband_rate(wideband_capture):
+    """Live wideband: the rtl_tcp tuner is set to channels x samplerate."""
+    server = FakeRtlTcp(wideband_capture[0])
+    server.start()
+    rc, out = port_cli(WIDEBAND_ARGS + [
+        "-format=json", f"-server=127.0.0.1:{server.port}", "-single=true", "-duration=12s"])
+    server.join(timeout=5)
+    assert rc == 0
+    lines = out.strip().splitlines()
+    assert len(lines) >= 1
+    assert json.loads(lines[0])["Channel"] in range(4)
+    cmds = dict(server.commands)
+    assert cmds.get(0x02) == 4 * 32768 * 8  # wideband sample rate
+
+
+def test_cli_wideband_dedup_keeps_the_lowest_channel(wideband_capture):
+    """-crosschanneldedup keeps the lowest channel's copy of a packet seen
+    in the same or adjacent block (rtlamr_tpu/parallel/wideband.py:55-83).
+    On this capture the R900 burst planted on channel 2 also decodes on
+    channel 0, so the copy kept is channel 0's, in the JAX CLI as in the
+    port."""
+    argv = WIDEBAND_ARGS + ["-format=json", "-crosschanneldedup=true",
+                            f"-fromfile={wideband_capture[1]}"]
+    rc, got = port_cli(argv)
+    jrc, want = jax_cli(argv)
+    assert rc == jrc == 0 and got.splitlines() == want.splitlines()
+    recs = [json.loads(ln) for ln in got.splitlines()]
+    ids = sorted((r["Channel"], r["Message"].get("ID", r["Message"].get("ERTSerialNumber")))
+                 for r in recs)
+    assert ids == [(0, 111001), (0, 333003), (1, 222002), (3, 444004)]
