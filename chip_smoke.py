@@ -12,40 +12,45 @@ a non-zero exit code and no result line:
 2. build    the hand-written CUDA kernels from ``rtlamr_tpu_torch/csrc``
             (one ``nvcc`` per source, all started together) and what
             ``-Xptxas -v`` says about registers and shared memory.
-3. k1       the decode-stencil kernel against its plain PyTorch version on
-            the card, byte for byte (bits, q6, mask), at the throughput spec
-            (all four ``-msgtype=all`` protocols, chip length 72, 1024
-            blocks a window) and at the SCM-only chip length 78 spec, with
-            ``first`` both ways; the kernel's time (CUDA events, L2 flushed
-            before each launch), the plain version's, and the bound.
-4. k2       the channelizer kernel against its plain PyTorch version on
-            the card, byte for byte, at N = 4, 12 and 32 channels over a
-            ragged frame count, with the stream head's zero history and with
-            a carried history; then at full width (N = 12, 8,388,608 frames)
-            its time (CUDA events, L2 flushed before each launch), the plain
-            version's, the bound, and what ``-Xptxas -v`` says about it.
-5. cli      ``python -m rtlamr_tpu_torch`` in-process on the golden capture
+3. cli      ``python -m rtlamr_tpu_torch`` in-process on the golden capture
             ``tests/fixtures/sample.bin``: exactly its 14 SCM messages; the
             same through ``WindowDecoder`` with block indices, also with one
             candidate slot a window, so that windows escalate to the
             high-capacity program and to the exact host path.
-6. decode   the narrowband path: four 1024-block windows of a synthetic
+4. decode   the narrowband path: four 1024-block windows of a synthetic
             all-protocol capture fed through ``WindowDecoder.feed`` in the
             CLI's chunk size; the decoded set equals the planted set. Prints
             samples/s, where the host time of a window goes, and the device
             time and kernel count of one window program.
-7. batch    the same capture device-resident through
+5. batch    the same capture device-resident through
             ``decode_staged_batch``: the same message stream.
-8. wideband the wideband path at full width: 12 channels at chip length 72,
+6. wideband the wideband path at full width: 12 channels at chip length 72,
             1024-block windows, two full super-steps and a flushed partial
             one of a synthetic capture (``bench_wideband.py``'s recipe)
             through ``WidebandDecoder.feed`` in the CLI's chunk size; the
             decoded (channel, type, id) set equals the planted set. Prints
             wideband samples/s, where the host time of a super-step goes,
             and the device time of one super-step.
-9. wideband_cli  ``python -m rtlamr_tpu_torch -channels=4`` in-process on a
+7. wideband_cli  ``python -m rtlamr_tpu_torch -channels=4`` in-process on a
             small four-channel capture: exactly its planted (channel, id)
             set.
+8. k1       the decode-stencil kernel against its plain PyTorch version on
+            the card, byte for byte (bits, q6, mask), at the throughput spec
+            (all four ``-msgtype=all`` protocols, chip length 72, 1024
+            blocks a window) on random, planted, all-zero and 0x8080
+            windows, at the SCM-only chip length 78 spec (no q6) and at chip
+            length 8 with 4 blocks (fewer strips than SMs), ``first`` both
+            ways; then the kernel's time by CUDA events around the wrapper
+            and by torch.profiler's record of the kernel (L2 flushed before
+            each launch), the plain version's, and the bound (bytes at the
+            HBM rate against integer operations at the card's int32 rate).
+9. k2       the channelizer kernel against its plain PyTorch version on
+            the card, byte for byte, at N = 4, 12 and 32 channels over a
+            ragged frame count, with the stream head's zero history and with
+            a carried history; then at full width (N = 12, 8,388,608 frames)
+            its time (CUDA events around the wrapper and torch.profiler's
+            record of the kernel, L2 flushed before each launch), the plain
+            version's, the bound, and what ``-Xptxas -v`` says about it.
 10. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
@@ -93,11 +98,15 @@ ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
 KERNELS = ("decode_stencil", "channelizer")  # csrc/<name>.cu
 WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM rate, and the 32-bit rate outside
-#: the tensor cores (67 TFLOP/s float32), the table's rate for the
-#: stencil's int32 work and the channelizer's float32 work.
+#: H100 SXM peaks (NVIDIA data sheet): HBM rate, and the float32 rate outside
+#: the tensor cores (67 TFLOP/s), the channelizer's bound.
 HBM_BYTES_PER_S = 3.35e12
 OPS_32BIT_PER_S = 67e12
+#: 32-bit integer add, compare, logic, shift and multiply-add results per
+#: clock per SM on Hopper (16 INT32 lanes in each of 4 partitions; CUDA C++
+#: Programming Guide, throughput table, compute capability 9.0). Times the
+#: SM count and the card's maximum SM clock, the decode stencil's bound.
+INT32_PER_CLOCK_PER_SM = 64
 
 #: (block, meter ID, consumption) of the 14 SCM messages in sample.bin at
 #: chip length 78 (tests/test_ref_decoder.py SAMPLE_BIN_GOLDEN).
@@ -238,34 +247,83 @@ class HostClock:
         self._undo.clear()
 
 
-def stencil_work(spec, bits: torch.Tensor):
-    """(bytes, int ops) the stencil function needs on this input: the staged
-    buffer read once and bits, q6 and mask written once; one op per add,
-    sub, mul, shift, and or compare, with the preamble compares counted as
-    this data needs them (each position's compare chain ends at its first
-    mismatch)."""
+def int32_ops_per_s() -> float:
+    """The card's 32-bit integer rate: INT32_PER_CLOCK_PER_SM x SMs x the
+    maximum SM clock that nvidia-smi reports."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+
+
+def stencil_work(spec, bits: torch.Tensor, int_rate: float):
+    """(bytes, int ops, ms of bytes, ms of ops, bound ms, bound by) of the
+    stencil function on this input: the staged buffer read once and bits,
+    q6 and mask written once, at HBM_BYTES_PER_S; 32-bit integer operations
+    at ``int_rate``, each part counted in the cheapest form the function is
+    shown to take (the kernel's own, or less):
+
+    - magnitude and running sum, 2 a sample read: one dp4a of the I and Q
+      bytes against their complements, one multiply-add into the sum
+      ((255 - 2x)^2 = 65025 - 4x(255 - x); the constant cancels in every
+      filter);
+    - Manchester bit, 3 a position: 2 for 2 W1 - W0 - W2 of prefix values,
+      1 for the sign;
+    - R900 symbol, 19 a position: 7 for a0, a1, a2 from five prefix values,
+      3 absolute values, 3 for the strict argmax, 6 selects and adds;
+    - preamble bank over 32-position words of packed bits: for each word
+      and symbol k, one funnel shift and one xor-and for each group still
+      alive in the word, while some group is; a group's word stops at the
+      first symbol after which none of its positions matches, as this data
+      needs. Packing the bits and unpacking the mask are not counted."""
     geo = staged_geometry(spec)
     sl, w = spec.symbol_length, spec.window
     r900 = spec.wants_r900
     n_bytes = 2 * geo.staged_samples + geo.lp + (geo.lq if r900 else 0) + w
-    compares = 0
-    for g in spec.groups:
-        alive = torch.ones(w, dtype=torch.bool, device=bits.device)
+    n_words = -(-w // 32)
+    max_len = max(len(g.bits) for g in spec.groups)
+    # live[g][k]: words in which group g has a position alive before symbol k.
+    live = torch.zeros(len(spec.groups), max_len, n_words, dtype=torch.bool,
+                       device=bits.device)
+    for gi, g in enumerate(spec.groups):
+        alive = torch.zeros(32 * n_words, dtype=torch.bool, device=bits.device)
+        alive[:w] = True
         for k, b in enumerate(g.bits):
-            compares += int(alive.sum())
-            alive &= bits[k * sl : k * sl + w] == b
+            live[gi, k] = alive.view(n_words, 32).any(1)
+            alive[:w] &= bits[k * sl : k * sl + w] == b
+    bank = int(live.sum()) + int(live.any(0).sum())  # xor-ands + funnel shifts
     n_read = geo.lp + sl + (4 * spec.chip_length if r900 else 0)
-    ops = (
-        8 * n_read  # magnitude: and, shift, 2 x (mul, sub), 2 squares, add
-        + n_read  # running sum
-        + 4 * geo.lp  # Manchester filter and sign
-        + compares
-        + (23 * geo.lq if r900 else 0)  # R900 bank, abs, argmax, select
-    )
+    ops = 2 * n_read + 3 * geo.lp + bank + (19 * geo.lq if r900 else 0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_32BIT_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return n_bytes, ops, max(t_bytes, t_ops), bound_by
+    return n_bytes, ops, t_bytes, t_ops, max(t_bytes, t_ops), bound_by
+
+
+def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3, flush=None) -> float:
+    """Mean device time of the CUDA kernel named ``kernel`` over ``reps``
+    calls of ``fn``, from torch.profiler's record of it (so no host gap is
+    counted), with ``flush`` zeroed before each call as in :func:`event_ms`.
+    Raises when the profiler recorded no launch of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in rows)
+    check(n == reps, f"profiler: {n} launches of {kernel} recorded for {reps} calls")
+    return sum(e.self_device_time_total for e in rows) / n / 1e3
 
 
 def profile_window(fn):
@@ -314,18 +372,41 @@ def phase_build():
          ptxas={k: ptxas_lines(k) for k in KERNELS})
 
 
+def k1_cases(capture: np.ndarray):
+    """(spec, label, staged u16 window) of the k1 phase: the throughput spec
+    at full width on random, planted, all-zero (each magnitude 130,050, so
+    a strip's uint32 prefix wraps; every bit 1) and 0x8080 (ties) windows;
+    SCM only at chip length 78 (no q6) on random bytes and the golden
+    capture; chip length 8 at 4 blocks (fewer strips than SMs)."""
+    spec72 = make_frontend_spec(build_decoder_config([new_parser(n, 72) for n in ALL]), 1024)
+    spec78 = make_frontend_spec(build_decoder_config([new_parser("scm", 78)]), 1024)
+    spec8 = make_frontend_spec(build_decoder_config([new_parser(n, 8) for n in ALL]), 4)
+    rng = np.random.default_rng(7)
+
+    def rand(spec):
+        n = staged_geometry(spec).staged_samples
+        return rng.integers(0, 256, 2 * n, dtype=np.uint8).view(np.uint16)
+
+    def const(spec, value):
+        return np.full(staged_geometry(spec).staged_samples, value, np.uint16)
+
+    return [
+        (spec72, "all@72x1024:random", rand(spec72)),
+        (spec72, "all@72x1024:packets", staged_windows(spec72, capture, 1)[0]),
+        (spec72, "all@72x1024:zeros", const(spec72, 0)),
+        (spec72, "all@72x1024:0x8080", const(spec72, 0x8080)),
+        (spec78, "scm@78x1024:random", rand(spec78)),
+        (spec78, "scm@78x1024:packets",
+         staged_windows(spec78, np.fromfile(SAMPLE_BIN, np.uint8), 1)[0]),
+        (spec8, "all@8x4:random", rand(spec8)),
+        (spec8, "all@8x4:zeros", const(spec8, 0)),
+    ]
+
+
 def phase_k1(card: str, capture: np.ndarray):
     dev = torch.device("cuda")
-    spec72 = make_frontend_spec(build_decoder_config([new_parser(n, 72) for n in ALL]), 1024)
-    spec78 = make_frontend_spec(build_decoder_config([new_parser("scm", 78)]), 64)
-    rng = np.random.default_rng(7)
-    cases = []
-    for spec, label in ((spec72, "all@72x1024"), (spec78, "scm@78x64")):
-        n = staged_geometry(spec).staged_samples
-        rand = rng.integers(0, 256, 2 * n, dtype=np.uint8).view(np.uint16)
-        real = (capture if spec is spec72 else np.fromfile(SAMPLE_BIN, np.uint8))
-        cases.append((spec, label + ":random", rand))
-        cases.append((spec, label + ":packets", staged_windows(spec, real, 1)[0]))
+    cases = k1_cases(capture)
+    spec72 = cases[0][0]
     max_err = 0
     for spec, label, host in cases:
         staged = torch.from_numpy(host).to(dev)
@@ -343,20 +424,27 @@ def phase_k1(card: str, capture: np.ndarray):
                 max_err = max(max_err, err)
                 check(torch.equal(a, b), f"k1 {label} first={first} {name}: "
                       f"{int((a != b).sum())} positions differ")
+            if label.endswith(":zeros") and not first:
+                check(bool(got[0].all()), f"k1 {label}: a bit is 0 where every f is 0")
         emit("k1_parity", case=label, first=[True, False], exact=True)
 
     # Time at the throughput spec, on the planted-packet window.
     staged = torch.from_numpy(cases[1][2]).to(dev)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ms = event_ms(lambda: decode_stencil(spec72, staged, False), flush=flush)
+    k_ms = kernel_ms(lambda: decode_stencil(spec72, staged, False), "decode_stencil_kernel",
+                     flush=flush)
     plain_ms = event_ms(lambda: stencil_plain(spec72, staged, False), flush=flush)
     bits = stencil_plain(spec72, staged, False)[0]
-    n_bytes, ops, bound_ms, bound_by = stencil_work(spec72, bits)
+    rate = int32_ops_per_s()
+    n_bytes, ops, bytes_ms, ops_ms, bound_ms, bound_by = stencil_work(spec72, bits, rate)
     del flush
-    emit("k1_time", card=card, spec="all@72x1024", ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, int_ops=ops,
-         roofline_share=bound_ms / ms, max_abs_err=max_err)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    emit("k1_time", card=card, spec="all@72x1024", ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
+         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, bytes_ms=bytes_ms,
+         int_ops=ops, int32_ops_per_s=rate, ops_ms=ops_ms,
+         roofline_share=bound_ms / k_ms, roofline_share_events=bound_ms / ms,
+         max_abs_err=max_err, ptxas=ptxas_lines("decode_stencil"))
+    return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": max_err}
 
 
@@ -583,15 +671,17 @@ def phase_k2(card: str):
     del want
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ms = event_ms(lambda: channelize_requantize_fused(spec, hist, chunk, False, out=out), flush=flush)
+    k_ms = kernel_ms(lambda: channelize_requantize_fused(spec, hist, chunk, False, out=out),
+                     "channelize_kernel", flush=flush)
     plain_ms = event_ms(lambda: channelize_requantize_plain(spec, hist, chunk, False), flush=flush)
     del flush, staged
     n_bytes, ops, bound_ms, bound_by = channelizer_work(spec, w)
-    emit("k2_time", card=card, n=n, frames=w, ms=ms, plain_ms=plain_ms,
+    emit("k2_time", card=card, n=n, frames=w, ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, f32_ops=ops,
          bound_ms_unfused=ops / (OPS_32BIT_PER_S / 2) * 1e3,
          roofline_share=bound_ms / ms, max_abs_err=max_err,
          ptxas=ptxas_lines("channelizer"))
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": max_err}
 
 
@@ -821,14 +911,18 @@ def main() -> int:
     cfg = build_decoder_config([new_parser(n, 72) for n in ALL])
     spec = make_frontend_spec(cfg, 1024)
     iq, planted = build_capture(cfg, n_windows, spec.window, spec.halo)
-    k1 = phase_k1(card, iq)
-    k2 = phase_k2(card)
+    # The paths run first: after the kernel phases' torch.profiler sessions
+    # the process launched the window program's kernels more slowly, which
+    # showed in the paths' host and span times.
     cli_launches = phase_cli()
     msgs, launches = phase_decode(card, iq, planted)
     batch_launches = phase_batch(iq, msgs)
-    del iq, msgs
+    del msgs
     wide_k1, wide_k2 = phase_wideband(card)
     wcli_k1, wcli_k2 = phase_wideband_cli()
+    k1 = phase_k1(card, iq)
+    del iq
+    k2 = phase_k2(card)
     print(json.dumps({"kernels": [{
         "name": "decode_stencil",
         "route": "cuda",
@@ -842,6 +936,7 @@ def main() -> int:
         "parity": "exact",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
+        "kernel_ms": k1["kernel_ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
@@ -857,6 +952,7 @@ def main() -> int:
         "parity": "exact",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],
+        "kernel_ms": k2["kernel_ms"],
         "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],

@@ -16,207 +16,409 @@
 //              a2 = d0 - d1 - d2 + d3; arg = strict-> argmax of |a|;
 //              q6 = arg + 3 (a_arg > 0)                   (R900 bank)
 //
-// What bounds it on the card: bytes. At the all-protocol spec (CL 72,
-// window_blocks 1024) a window reads 8,525,824 u16 (17.1 MB) and writes
-// bits (8.49 MB) + q6 (8.49 MB) + mask (8.39 MB) = 25.4 MB, so 42.4 MB at
-// 3.35 TB/s is about 12.7 us. The integer work is about 390 M 32-bit
-// operations a window (magnitude 8, running sum 1, bit 4, R900 bank 23 per
-// position, and the preamble compares, which exit at the first mismatch:
-// ~2 per group per position on noise; chip_smoke.py counts them on its
-// data), about 5.8 us at the 67 T/s 32-bit scalar rate and 11.5 us even at
-// half that, the int32 issue rate, so the byte bound is the larger.
+// What bounds it on the card: bytes and integer operations about equally.
+// At the all-protocol spec (CL 72, window_blocks 1024) a window reads
+// 8,525,824 u16 (17.1 MB) and writes bits (8.49 MB) + q6 (8.49 MB) + mask
+// (8.39 MB), so 42.4 MB, 12.7 us at 3.35 TB/s. Its 32-bit integer work,
+// counted in the cheapest form shown (chip_smoke.py stencil_work: 2 a sample
+// for magnitude and sum, 3 a bit, 19 an R900 symbol, the packed bank as the
+// data needs it), is about 24.5 operations a position, some 208 M; on 16
+// INT32 lanes per SM partition, 64 results per clock per SM, 132 SMs at
+// 1.98 GHz give 16.7 T/s, so about 12.4 us.
 //
-// Design: one CTA per tile of TILE output positions. The CTA loads the
-// tile's staged span (TILE plus the stencil's reach: the preamble bank's
-// (bits - 1) SL plus the Manchester SL, or the R900 bank's SL + 4 CL) into
-// shared memory once, so no magnitude, energy or bit array ever goes to
-// device memory: each output byte is written once and the input is read
-// once plus the halo overlap (~56% at CL 72, served mostly from L2).
-// Chip energies come from a tile-local prefix sum kept in uint32: unsigned
-// wrap-around is defined in C++, every filter output is a difference of
-// prefix values whose true value fits in int32 (|f| <= 96 * 130050), so the
-// wrap cancels exactly and the result is cast to int32 only for the sign
-// test. The bit stream over the extended range lives in shared memory for
-// the preamble compares. A faster version (bit-packed preamble compares
-// with __popc, TMA tile loads) is left for later.
+// Design, for that bound (measured on an H100 by chip_smoke.py; PERF.md):
+// - Persistent strips. The grid is two CTAs per SM (264 on an H100); each
+//   owns one contiguous strip of positions (ops/stencil.py stencil_plan) and
+//   walks it in steps of SUB_TILE staged samples, carrying the running
+//   uint32 prefix sum in a register and the last prefix values and packed
+//   bit words in shared memory. Only the strip's right halo (d_mask, about
+//   4.9 K positions at CL 72) is loaded twice; a warp skips bits and R900
+//   symbols that no output of its strip needs.
+// - Asynchronous input. Each thread brings 16 bytes of a sub-tile with
+//   cp.async into a 3-slot ring, two sub-tiles ahead of the one it scans; the
+//   strip's start is rounded down to 16 bytes and the stencil offsets carry
+//   the remainder (`shift`).
+// - Few instructions a sample. (255 - 2x)^2 = 65025 - 4 x (255 - x), so a
+//   sample's magnitude is 130050 - 4 dp4a(its I and Q bytes, their
+//   complements): one __dp4a and one multiply-add into the running sum. Every
+//   filter weighs two equally long windows with opposite signs, so the
+//   constant 130050 cancels and the sum runs over mag - 130050 (a zeroed
+//   first-window sample adds -130050). The scan is in registers, 8
+//   consecutive samples a thread (one 16-byte shared load), then a warp
+//   shuffle scan and a cross-warp shuffle scan of the warp totals. Every
+//   filter output is a difference of prefix values whose true value fits in
+//   int32 (|f| <= 96 * 130050), so uint32 wrap-around, which the carried
+//   prefix reaches within a strip, cancels exactly. The prefix buffer is
+//   linear (the step's samples behind a carried lookback), so each stencil
+//   read is a base register plus an immediate offset, and the bit and the
+//   R900 symbol of a position share their seven prefix reads.
+// - Bits 32 to a word by __ballot_sync, kept packed. The preamble bank reads,
+//   for symbol k, the 32-position word at offset k SL with two loads and a
+//   funnel shift, shares it across groups, and ANDs it with each group's
+//   flip mask for k (a shared table) into one accumulator per group: no
+//   data-dependent branch and no per-position byte load. Groups come longest
+//   first and their count is a template argument, so no test of a group's
+//   length or existence runs per symbol. The k of a step's 128 words are
+//   split four ways over all 16 warps and the partial accumulators meet by
+//   shared-memory atomicAnd.
+// - Each output byte is written once, 16 bytes a thread where a whole
+//   vector lies inside the output, byte by byte at the ragged ends; the
+//   mask's transposition and the bits and q6 stores share one phase.
+// Each step emits bits and q6 d_bits, and mask d_mask, positions behind the
+// newest sample it scanned, so everything a position reads has arrived.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE 8192
+#define SUB_TILE 4096                     // staged samples (and positions) a step
 #define THREADS 512
+#define CTAS_PER_SM 2
+#define STAGES 3                          // input ring slots
+#define WARPS (THREADS / 32)
+#define PER_THREAD (SUB_TILE / THREADS)   // 8 samples: one 16-byte load
+#define WORDS (SUB_TILE / 32)             // bit words a step
+#define K_SPLIT (THREADS * 32 / SUB_TILE)  // warps sharing a mask word: 4
+#define CHUNKS (SUB_TILE / 16)            // 16-byte output vectors a step
 #define MAX_GROUPS 8
+#define SMEM_CAP (113 * 1024)             // two CTAs per SM
 
-struct Preambles {
-  int n_groups;
-  int len[MAX_GROUPS];
-  unsigned long long bits[MAX_GROUPS];  // bit k = preamble symbol k
+// Scalar arguments; the layout matches ops/stencil.py _Args.
+struct StencilArgs {
+  int n_staged, lp, lq, window, cl, sl, ps, halo_staged, packet_length;
+  int sub_tile, n_strips, strip_len, n_steps, shift, d_bits, d_mask;
+  int lookback, bit_words, n_groups, max_len;
+  // Groups longest first: length, symbols (bit k = symbol k), and the bit
+  // of the mask byte that is the group's.
+  int pre_len[MAX_GROUPS];
+  unsigned long long pre_bits[MAX_GROUPS];
+  int order[MAX_GROUPS];
 };
 
-struct Geometry {
-  int n_staged;       // staged u16 elements
-  int lp, lq, window; // output lengths: bits, q6, mask
-  int cl, sl, ps;     // chip length, symbol length, staged pad shift
-  int halo_staged;    // first-window magnitude mask bound
-  int packet_length;  // first-window zero-bit bound
-  int first;          // 1 on the stream's first window
-  int span;           // staged samples loaded per tile
-  int n_ext;          // extended bit positions per tile (TILE + pre_reach)
-};
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(THREADS)
-decode_stencil_kernel(const uint16_t* __restrict__ staged,
-                      uint8_t* __restrict__ bits, uint8_t* __restrict__ q6,
-                      uint8_t* __restrict__ mask, Geometry g, Preambles pre) {
-  extern __shared__ uint32_t smem[];
-  __shared__ uint32_t warp_tot[THREADS / 32];
-  uint32_t* P = smem;  // P[j] = sum of mag over local samples [0, j)
-  uint8_t* bext = reinterpret_cast<uint8_t*>(smem + g.span + 1);
+// 16 bytes global -> shared; src_bytes 0 fills zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const long long q0 = (long long)blockIdx.x * TILE;
-  const long long base = q0 + g.ps;  // staged index of local sample 0
+// Low 4 bits of x -> 4 bytes of 0 or 1.
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  return ((x & 15u) * 0x00204081u) & 0x01010101u;
+}
 
-  // 1. Magnitude of the tile's span (coalesced u16 loads).
-  for (int j = tid; j < g.span; j += THREADS) {
-    const long long s = base + j;
-    uint32_t m = 0;
-    if (s < g.n_staged && !(g.first && s < g.halo_staged)) {
-      const uint32_t v = staged[s];
-      const int di = 255 - 2 * (int)(v & 255u);
-      const int dq = 255 - 2 * (int)(v >> 8);
-      m = (uint32_t)(di * di + dq * dq);
-    }
-    P[j + 1] = m;
+// Store the 16 bytes of v at out[i .. i + 16), only the bytes with
+// 0 <= i + b < end; one vector store when all of them are.
+__device__ __forceinline__ void store16(uint8_t* out, int i, int end, uint4 v) {
+  if (i >= 0 && i + 16 <= end) {
+    *reinterpret_cast<uint4*>(out + i) = v;
+    return;
   }
-  if (tid == 0) P[0] = 0;
-  __syncthreads();
-
-  // 2. In-place inclusive prefix sum of P[1 .. span] in uint32: each thread
-  // scans a contiguous chunk, then the chunk totals are scanned across the
-  // block and added back.
-  const int chunk = (g.span + THREADS - 1) / THREADS;
-  const int lo = 1 + tid * chunk;
-  const int hi = min(lo + chunk, g.span + 1);
-  uint32_t run = 0;
-  for (int j = lo; j < hi; ++j) {
-    run += P[j];
-    P[j] = run;
-  }
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
-  uint32_t x = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    uint32_t t = lane < THREADS / 32 ? warp_tot[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    if (lane < THREADS / 32) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  const uint32_t offset = (x - run) + (wid > 0 ? warp_tot[wid - 1] : 0u);
-  for (int j = lo; j < hi; ++j) P[j] += offset;
-  __syncthreads();
-
-  // 3. Manchester bits over the extended range the preamble bank reads:
-  // f = W(i) - W(i + CL) = 2 P[i + CL] - P[i] - P[i + SL].
-  for (int i = tid; i < g.n_ext; i += THREADS) {
-    const uint32_t f = 2u * P[i + g.cl] - P[i] - P[i + g.sl];
-    const long long q = q0 + i;
-    uint8_t b = ((int32_t)f >= 0) ? 1 : 0;
-    if (g.first && q < g.packet_length) b = 0;
-    bext[i] = b;
-    if (i < TILE && q < g.lp) bits[q] = b;
-  }
-  __syncthreads();
-
-  // 4. Preamble bank and R900 bank for the tile's own positions.
-  for (int i = tid; i < TILE; i += THREADS) {
-    const long long q = q0 + i;
-    if (q < g.window) {
-      uint8_t m = 0;
-      for (int gi = 0; gi < pre.n_groups; ++gi) {
-        const unsigned long long pb = pre.bits[gi];
-        bool ok = true;
-        for (int k = 0; k < pre.len[gi]; ++k) {
-          if (bext[i + k * g.sl] != (uint8_t)((pb >> k) & 1ull)) {
-            ok = false;
-            break;
-          }
-        }
-        if (ok) m |= (uint8_t)(1u << gi);
-      }
-      mask[q] = m;
-    }
-    if (q6 != nullptr && q < g.lq) {
-      int32_t d[4];
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int xj = i + g.sl + j * g.cl;
-        d[j] = (int32_t)(P[xj + g.cl] - P[xj]);
-      }
-      const int32_t a0 = (d[0] + d[1]) - (d[2] + d[3]);
-      const int32_t a1 = d[0] - d[1] + d[2] - d[3];
-      const int32_t a2 = d[0] - d[1] - d[2] + d[3];
+  for (int b = 0; b < 16; ++b)
+    if (i + b >= 0 && i + b < end) out[i + b] = (uint8_t)(w[b >> 2] >> (8 * (b & 3)));
+}
+
+// Bits and R900 symbols of a warp's 256 positions, from e_n = I[j - 1 + n CL]
+// (p0: lane's e_0 for the first 32, j = i + shift, P[j] = I[j - 1],
+// SL = 2 CL): f = 2 P[j + CL] - P[j] - P[j + SL] = 2 e1 - e0 - e2, packed 32
+// to a word into words[]; R900: d_m = W(j + SL + m CL) = e_{m+3} - e_{m+2},
+// the symbol into row[]. `above` is the lane's position minus the first
+// position whose bit is not forced to 0.
+template <bool R900>
+__device__ __forceinline__ void bits_and_r900(const uint32_t* p0, int cl, int above, int lane,
+                                              uint32_t* words, uint8_t* row) {
+#pragma unroll
+  for (int r = 0; r < WORDS / WARPS; ++r) {
+    const uint32_t* p = p0 + 32 * r;
+    const uint32_t e0 = p[0], e1 = p[cl], e2 = p[2 * cl];
+    const uint32_t f = 2u * e1 - e0 - e2;
+    const uint32_t word = __ballot_sync(0xffffffffu, (int32_t)f >= 0 && above + 32 * r >= 0);
+    if (lane == 0) words[r] = word;
+    if (R900) {
+      const uint32_t e3 = p[3 * cl], e4 = p[4 * cl], e5 = p[5 * cl], e6 = p[6 * cl];
+      const int32_t s = (int32_t)(e2 + e6);
+      const int32_t a0 = (int32_t)(2u * e4) - s;               // (d0 + d1) - (d2 + d3)
+      const int32_t a1 = (int32_t)(2u * (e3 - e4 + e5)) - s;   // d0 - d1 + d2 - d3
+      const int32_t a2 = (int32_t)(2u * (e3 - e5) + e6 - e2);  // d0 - d1 - d2 + d3
       const int32_t m0 = abs(a0), m1 = abs(a1), m2 = abs(a2);
-      int arg = m1 > m0 ? 1 : 0;
-      const int32_t best = max(m0, m1);
-      if (m2 > best) arg = 2;
-      const int32_t chosen = arg == 0 ? a0 : (arg == 1 ? a1 : a2);
-      q6[q] = (uint8_t)(arg + (chosen > 0 ? 3 : 0));
+      const bool p1 = m1 > m0, p2 = m2 > max(m0, m1);
+      const int32_t chosen = p2 ? a2 : (p1 ? a1 : a0);
+      row[32 * r] = (uint8_t)((p2 ? 2 : (p1 ? 1 : 0)) + (chosen > 0 ? 3 : 0));
     }
   }
 }
 
-// Launch on `stream`. Returns 0 or the CUDA error code of the attribute call
-// or of the launch (cudaGetLastError). Pass q6 = NULL when no group wants
-// R900 symbols. `pre_len` and `pre_bits` are host arrays of n_groups entries.
-extern "C" int rtlamr_decode_stencil(
-    const void* staged, void* bits, void* q6, void* mask, int n_staged,
-    int lp, int lq, int window, int cl, int sl, int ps, int halo_staged,
-    int packet_length, int pre_reach, int first, int n_groups,
-    const int* pre_len, const unsigned long long* pre_bits, void* stream) {
-  if (n_groups < 1 || n_groups > MAX_GROUPS) return (int)cudaErrorInvalidValue;
-  Preambles pre = {};
-  pre.n_groups = n_groups;
-  for (int gi = 0; gi < n_groups; ++gi) {
-    if (pre_len[gi] < 1 || pre_len[gi] > 64) return (int)cudaErrorInvalidValue;
-    pre.len[gi] = pre_len[gi];
-    pre.bits[gi] = pre_bits[gi];
+// NG: the number of preamble groups, fixed so that no dead group costs an
+// instruction.
+template <int NG>
+__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+decode_stencil_kernel(const uint16_t* __restrict__ staged, uint8_t* __restrict__ bits,
+                      uint8_t* __restrict__ q6, uint8_t* __restrict__ mask, int first,
+                      const StencilArgs a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ __align__(16) uint32_t wsum[WARPS];
+  // flip[k][g]: 0 where group g's preamble symbol k is 1, all ones where 0.
+  __shared__ __align__(16) uint32_t flip[64][MAX_GROUPS];
+  const int lb = a.lookback;
+  // I[j] (inclusive prefix of mag - 130050 over local samples) of samples
+  // [t SUB_TILE - lb, (t + 1) SUB_TILE) at j - t SUB_TILE + lb.
+  uint32_t* pre = smem;
+  uint32_t* macc = pre + SUB_TILE + lb;  // [group][word] mask accumulators
+  uint16_t* in = reinterpret_cast<uint16_t*>(macc + MAX_GROUPS * WORDS);
+  uint8_t* q6s = reinterpret_cast<uint8_t*>(in + STAGES * SUB_TILE);  // a step's q6
+  // Bit words of positions from t SUB_TILE - d_mask on.
+  uint32_t* bw = reinterpret_cast<uint32_t*>(q6s + SUB_TILE);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int keep = (a.d_mask - a.d_bits) >> 5;  // bit words carried to the next step
+  const int q0 = blockIdx.x * a.strip_len;     // the strip's first position
+  // Staged index of local sample 0; local position i reads from sample i + shift.
+  const int base = q0 + a.ps - a.shift;
+  const int bits_end = min(a.strip_len, a.lp - q0);  // local ends of the outputs
+  const int q6_end = min(a.strip_len, a.lq - q0);
+  const int mask_end = min(a.strip_len, a.window - q0);
+  // Bits the bank reads reach d_mask - d_bits past the strip; a step skips
+  // bits, q6 and magnitudes that no output of the strip needs.
+  const int bits_need = min(a.strip_len + a.d_mask - a.d_bits, a.lp - q0);
+  const int samples_need = bits_need + a.d_bits;
+  const int zero_samples = first ? a.halo_staged - base : 0;  // mag 0 below
+  const int zero_bits = first ? a.packet_length - q0 : -(1 << 30);  // bit 0 below
+
+  auto issue = [&](int t) {  // sub-tile t into input slot t % STAGES
+    const int s = base + t * SUB_TILE + PER_THREAD * tid;  // n_staged % 8 == 0
+    const bool live = s < a.n_staged;
+    cp_async16(in + (t % STAGES) * SUB_TILE + PER_THREAD * tid, live ? staged + s : staged,
+               live ? 16 : 0);
+  };
+
+  if (tid == 0) pre[lb - 1] = 0;  // I[-1]
+  for (int x = tid; x < 64 * MAX_GROUPS; x += THREADS) {
+    const int k = x / MAX_GROUPS, g = x % MAX_GROUPS;
+    flip[k][g] = g < NG && !((a.pre_bits[g] >> k) & 1ull) ? 0xffffffffu : 0u;
   }
-  Geometry g;
-  g.n_staged = n_staged;
-  g.lp = lp;
-  g.lq = lq;
-  g.window = window;
-  g.cl = cl;
-  g.sl = sl;
-  g.ps = ps;
-  g.halo_staged = halo_staged;
-  g.packet_length = packet_length;
-  g.first = first ? 1 : 0;
-  const int reach_bits = pre_reach + sl;
-  const int reach_r900 = sl + 4 * cl;
-  g.span = TILE + (reach_bits > reach_r900 ? reach_bits : reach_r900);
-  g.n_ext = TILE + pre_reach;
-  const size_t smem = (size_t)(g.span + 1) * sizeof(uint32_t) + (size_t)g.n_ext;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_stencil_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (lp + TILE - 1) / TILE;
-  decode_stencil_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint16_t*)staged, (uint8_t*)bits, (uint8_t*)q6, (uint8_t*)mask,
-      g, pre);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < a.n_steps) issue(t);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  uint32_t carry = 0;  // I of the last sample of the previous step
+  for (int t = 0; t < a.n_steps; ++t) {
+    if (t + STAGES - 1 < a.n_steps) issue(t + STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+    __syncthreads();  // sub-tile t has landed; step t - 1 is done
+
+    // Carry the lookback prefix values (disjoint ranges) and read the bit
+    // words to carry (written after the next barrier: the ranges overlap).
+    uint32_t carried_word = 0;
+    if (t > 0) {
+      if (tid < lb / 4)
+        reinterpret_cast<uint4*>(pre)[tid] = reinterpret_cast<const uint4*>(pre + SUB_TILE)[tid];
+      if (tid < keep) carried_word = bw[WORDS + tid];
+    }
+    for (int x = tid; x < NG * WORDS; x += THREADS) macc[x] = 0xffffffffu;
+
+    // A. mag - 130050 = -4 (I (255 - I) + Q (255 - Q)) and its prefix.
+    const int j0 = t * SUB_TILE + PER_THREAD * tid;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(in + (t % STAGES) * SUB_TILE + PER_THREAD * tid);
+    const uint32_t pair[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t run = 0, sums[PER_THREAD];
+    if (j0 >= samples_need) {
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k) sums[k] = 0;
+    } else if (j0 >= zero_samples) {
+#pragma unroll
+      for (int p = 0; p < PER_THREAD / 2; ++p) {
+        const uint32_t nv = ~pair[p];
+        run -= 4u * __dp4a(pair[p] & 0xffffu, nv, 0u);
+        sums[2 * p] = run;
+        run -= 4u * __dp4a(pair[p] & 0xffff0000u, nv, 0u);
+        sums[2 * p + 1] = run;
+      }
+    } else {  // the first window's zeroed history: mag 0
+#pragma unroll
+      for (int k = 0; k < PER_THREAD; ++k) {
+        const uint32_t v = pair[k >> 1];
+        const uint32_t sel = (k & 1) ? 0xffff0000u : 0xffffu;
+        run -= j0 + k < zero_samples ? 130050u : 4u * __dp4a(v & sel, ~v, 0u);
+        sums[k] = run;
+      }
+    }
+    uint32_t x = run;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    if (tid < keep) bw[tid] = carried_word;
+    uint32_t ws = lane < WARPS ? wsum[lane] : 0u;
+#pragma unroll
+    for (int o = 1; o < WARPS; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, ws, o);
+      if (lane >= o) ws += y;
+    }
+    const uint32_t below = __shfl_sync(0xffffffffu, ws, (warp + 31) & 31);
+    const uint32_t before = carry + (warp > 0 ? below : 0u) + (x - run);
+    carry += __shfl_sync(0xffffffffu, ws, WARPS - 1);
+    uint4* dst = reinterpret_cast<uint4*>(pre + lb + PER_THREAD * tid);
+    dst[0] = make_uint4(sums[0] + before, sums[1] + before, sums[2] + before, sums[3] + before);
+    dst[1] = make_uint4(sums[4] + before, sums[5] + before, sums[6] + before, sums[7] + before);
+    __syncthreads();
+
+    // B. Manchester bits and the R900 bank, d_bits behind the scan. A warp
+    // skips its 256 positions when no output of the strip needs them.
+    {
+      const int i0 = t * SUB_TILE - a.d_bits + (SUB_TILE / WARPS) * warp;  // the warp's first
+      if (i0 + SUB_TILE / WARPS > 0 && i0 < bits_need) {
+        const uint32_t* p0 = pre + lb - a.d_bits + a.shift - 1 + (SUB_TILE / WARPS) * warp + lane;
+        uint32_t* words = bw + keep + (WORDS / WARPS) * warp;
+        uint8_t* row = q6s + (SUB_TILE / WARPS) * warp + lane;
+        if (q6 != nullptr && i0 < q6_end)
+          bits_and_r900<true>(p0, a.cl, i0 + lane - zero_bits, lane, words, row);
+        else
+          bits_and_r900<false>(p0, a.cl, i0 + lane - zero_bits, lane, words, row);
+      }
+    }
+    __syncthreads();
+
+    // C1. Preamble bank, d_mask behind: word (warp % 4) * 32 + lane, the
+    // symbols k with k % K_SPLIT = warp / 4; partial accumulators meet in
+    // macc. Groups come longest first, so while k is below the length of
+    // group `live - 1` exactly groups 0 .. live - 1 are live, a number fixed
+    // at compile time in each unrolled copy of the loop.
+    {
+      const int word = ((warp % (WORDS / 32)) << 5) | lane;
+      const int i0 = t * SUB_TILE - a.d_mask + 32 * word;
+      if (i0 + 32 > 0 && i0 < mask_end) {
+        uint32_t acc[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) acc[g] = 0xffffffffu;
+        int k = warp / (WORDS / 32);
+#pragma unroll
+        for (int live = NG; live >= 1; --live) {
+#pragma unroll 4
+          for (; k < a.pre_len[live - 1]; k += K_SPLIT) {
+            const int off = k * a.sl;
+            const uint32_t* wp = bw + word + (off >> 5);
+            const uint32_t w = __funnelshift_r(wp[0], wp[1], (uint32_t)off & 31u);
+            uint32_t f[8];
+            const uint4 f0 = *reinterpret_cast<const uint4*>(flip[k]);
+            f[0] = f0.x, f[1] = f0.y, f[2] = f0.z, f[3] = f0.w;
+            if constexpr (NG > 4) {
+              const uint4 f1 = *reinterpret_cast<const uint4*>(flip[k] + 4);
+              f[4] = f1.x, f[5] = f1.y, f[6] = f1.z, f[7] = f1.w;
+            }
+#pragma unroll
+            for (int g = 0; g < live; ++g) acc[g] &= w ^ f[g];
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          if (acc[g] != 0xffffffffu) atomicAnd(&macc[g * WORDS + word], acc[g]);
+      }
+    }
+    __syncthreads();
+
+    // C2. The mask bytes of this step, 16 positions a thread, beside the
+    // bits and q6 of this step.
+    if (tid < CHUNKS) {
+      const int i = t * SUB_TILE - a.d_mask + 16 * tid;
+      if (i + 16 > 0 && i < mask_end) {
+        uint32_t out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const uint32_t m = macc[g * WORDS + (tid >> 1)] >> (16 * (tid & 1));
+#pragma unroll
+          for (int n = 0; n < 4; ++n) out[n] |= spread4(m >> (4 * n)) << a.order[g];
+        }
+        store16(mask + q0, i, mask_end, make_uint4(out[0], out[1], out[2], out[3]));
+      }
+    } else {
+      const int c = tid - CHUNKS;  // one 16-byte vector of bits and one of q6
+      const int i = t * SUB_TILE - a.d_bits + 16 * c;
+      if (i + 16 > 0 && i < bits_end) {
+        const uint32_t w = bw[keep + (c >> 1)] >> (16 * (c & 1));
+        store16(bits + q0, i, bits_end,
+                make_uint4(spread4(w), spread4(w >> 4), spread4(w >> 8), spread4(w >> 12)));
+      }
+      if (q6 != nullptr && i + 16 > 0 && i < q6_end)
+        store16(q6 + q0, i, q6_end, reinterpret_cast<const uint4*>(q6s)[c]);
+    }
+  }
+}
+
+static size_t smem_bytes(int lookback, int bit_words) {
+  return (size_t)(SUB_TILE + lookback) * 4 + MAX_GROUPS * WORDS * 4 + STAGES * SUB_TILE * 2 +
+         SUB_TILE + (size_t)bit_words * 4;
+}
+
+template <int NG>
+static int launch(int dev, const void* staged, void* bits, void* q6, void* mask, int first,
+                  const StencilArgs& a, void* stream) {
+  static bool attr_set[64];  // the shared-memory ceiling, once per process and device
+  if (!attr_set[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_stencil_kernel<NG>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+  decode_stencil_kernel<NG><<<a.n_strips, THREADS, smem_bytes(a.lookback, a.bit_words),
+                              (cudaStream_t)stream>>>((const uint16_t*)staged, (uint8_t*)bits,
+                                                      (uint8_t*)q6, (uint8_t*)mask,
+                                                      first ? 1 : 0, a);
   return (int)cudaGetLastError();
 }
 
-// Tile size, so a caller can count CTAs and halo traffic.
-extern "C" int rtlamr_decode_stencil_tile(void) { return TILE; }
+// Launch on `stream`. Returns 0 or a CUDA error code: cudaErrorInvalidValue
+// for arguments the kernel does not take, else that of the attribute call
+// or of the launch (cudaGetLastError). Pass q6 = NULL when no group wants
+// R900 symbols. `args` is a host struct, read before the call returns.
+extern "C" int rtlamr_decode_stencil(const void* staged, void* bits, void* q6, void* mask,
+                                     int first, const StencilArgs* args, void* stream) {
+  const StencilArgs a = *args;
+  const int keep = (a.d_mask - a.d_bits) / 32;
+  bool ok = a.sub_tile == SUB_TILE && a.n_groups >= 1 && a.n_groups <= MAX_GROUPS &&
+            a.n_staged % 8 == 0 && a.strip_len > 0 && a.strip_len % 32 == 0 &&
+            a.n_strips > 0 && (long long)(a.n_strips - 1) * a.strip_len < a.lp &&
+            a.d_bits % 32 == 0 && a.d_mask % 32 == 0 && a.shift == a.ps % 8 &&
+            a.sl == 2 * a.cl && a.d_bits >= a.sl + a.shift &&
+            (q6 == nullptr || a.d_bits >= a.sl + 4 * a.cl + a.shift) &&
+            a.d_mask >= a.d_bits + (a.max_len - 1) * a.sl && keep <= THREADS &&
+            a.lookback % 8 == 0 && a.lookback <= 4 * THREADS &&
+            a.lookback >= a.d_bits - a.shift + 1 && a.bit_words >= keep + WORDS + 1 &&
+            (long long)a.n_steps * SUB_TILE >= (long long)a.strip_len + a.d_mask &&
+            smem_bytes(a.lookback, a.bit_words) <= SMEM_CAP && ((uintptr_t)staged & 15) == 0 &&
+            ((uintptr_t)bits & 15) == 0 && ((uintptr_t)q6 & 15) == 0 &&
+            ((uintptr_t)mask & 15) == 0;
+  int seen = 0;
+  for (int g = 0; ok && g < a.n_groups; ++g) {
+    ok = a.pre_len[g] >= 1 && a.pre_len[g] <= (g ? a.pre_len[g - 1] : 64) &&
+         a.order[g] >= 0 && a.order[g] < a.n_groups && !(seen >> a.order[g] & 1);
+    if (ok) seen |= 1 << a.order[g];
+  }
+  if (!ok || a.max_len != a.pre_len[0]) return (int)cudaErrorInvalidValue;
+
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  switch (a.n_groups) {
+    case 1: return launch<1>(dev, staged, bits, q6, mask, first, a, stream);
+    case 2: return launch<2>(dev, staged, bits, q6, mask, first, a, stream);
+    case 3: return launch<3>(dev, staged, bits, q6, mask, first, a, stream);
+    case 4: return launch<4>(dev, staged, bits, q6, mask, first, a, stream);
+    case 5: return launch<5>(dev, staged, bits, q6, mask, first, a, stream);
+    case 6: return launch<6>(dev, staged, bits, q6, mask, first, a, stream);
+    case 7: return launch<7>(dev, staged, bits, q6, mask, first, a, stream);
+    default: return launch<8>(dev, staged, bits, q6, mask, first, a, stream);
+  }
+}

@@ -20,7 +20,8 @@ JAX package's int32 wrap-around argument without relying on it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -89,15 +90,121 @@ def masks_plain(spec: FrontendSpec, bits: torch.Tensor) -> torch.Tensor:
     return mask.reshape(w // LANES, LANES)
 
 
+#: Positions a CTA of the kernel handles per step of its strip; equal to
+#: SUB_TILE in ``csrc/decode_stencil.cu``, which refuses any other value.
+SUB_TILE = 4096
+#: CTAs the kernel keeps resident per SM (its ``__launch_bounds__``).
+CTAS_PER_SM = 2
+#: Threads a CTA (THREADS in the .cu): bounds what one step can carry over.
+THREADS = 512
+
+
+class StencilPlan(NamedTuple):
+    """How the kernel cuts one window into persistent strips.
+
+    Strip k owns output positions ``[k * strip_len, (k + 1) * strip_len)``
+    (cut at each output's length) and walks them in ``n_steps`` sub-tiles
+    of ``sub_tile`` staged samples, starting at staged sample
+    ``k * strip_len + pad_shift - shift`` (16-byte aligned). Step t has the
+    samples ``[t * sub_tile, (t + 1) * sub_tile)`` of the strip and emits
+    bits and q6 ``d_bits``, and mask ``d_mask``, positions behind them, so
+    what a position reads has arrived by then; ``d_mask`` is the strip's
+    halo. Step t keeps the prefix sums of its samples and of the
+    ``lookback`` samples before them, and ``bit_words`` packed words of
+    bits from position ``t * sub_tile - d_mask`` on; it hands the last
+    ``lookback`` sums and ``(d_mask - d_bits) / 32`` words to step t + 1.
+    """
+
+    sub_tile: int
+    n_strips: int
+    strip_len: int  # multiple of 32: strips start on whole bit words
+    n_steps: int
+    shift: int  # pad_shift % 8: local sample of output position 0
+    d_bits: int  # multiple of 32
+    d_mask: int  # multiple of 32
+    lookback: int  # multiple of 8
+    bit_words: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_plan(spec: FrontendSpec, n_sm: int) -> StencilPlan:
+    """The kernel's launch plan for ``spec`` on a card with ``n_sm`` SMs:
+    CTAS_PER_SM strips per SM, fewer when the window is short."""
+    geo = staged_geometry(spec)
+    cl, sl, t = spec.chip_length, spec.symbol_length, SUB_TILE
+    shift = spec.pad_shift % 8
+    # The deepest sample a bit (SL) or R900 symbol (SL + 4 CL) reads.
+    d_bits = _round_up(sl + (4 * cl if spec.wants_r900 else 0) + shift, 32)
+    d_mask = d_bits + _round_up(geo.pre_reach, 32)
+    # Prefix sums a step reads before its own samples: P[j] = I[j - 1].
+    lookback = _round_up(d_bits - shift + 1, 8)
+    if lookback > 4 * THREADS or (d_mask - d_bits) // 32 > THREADS:
+        raise ValueError("decode_stencil: symbol or preamble too long for the kernel")
+    # One strip per resident CTA, but at least one step's worth: a short
+    # window gets fewer strips than the card has SMs.
+    strip_len = max(_round_up(-(-geo.lp // (CTAS_PER_SM * n_sm)), 32), (t - d_mask) // 32 * 32)
+    return StencilPlan(
+        sub_tile=t,
+        n_strips=-(-geo.lp // strip_len),
+        strip_len=strip_len,
+        n_steps=-(-(strip_len + d_mask) // t),
+        shift=shift,
+        d_bits=d_bits,
+        d_mask=d_mask,
+        lookback=lookback,
+        bit_words=(d_mask - d_bits) // 32 + t // 32 + 1,
+    )
+
+
 def _launch_fn():
     from .build import load
 
     fn = load("decode_stencil").rtlamr_decode_stencil
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp] + [ci] * 12 + [vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, vp, vp]
         fn.restype = ci
     return fn
+
+
+class _Args(ctypes.Structure):
+    """The kernel's scalar arguments (``StencilArgs`` in the .cu)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "n_staged", "lp", "lq", "window", "cl", "sl", "ps", "halo_staged",
+        "packet_length", "sub_tile", "n_strips", "strip_len", "n_steps",
+        "shift", "d_bits", "d_mask", "lookback", "bit_words", "n_groups",
+        "max_len",
+    )] + [("pre_len", ctypes.c_int * 8), ("pre_bits", ctypes.c_ulonglong * 8),
+          ("order", ctypes.c_int * 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _args(spec: FrontendSpec, n_sm: int) -> _Args:
+    geo = staged_geometry(spec)
+    plan = stencil_plan(spec, n_sm)
+    # Longest group first; order[g] is the mask bit of the g-th longest.
+    order = sorted(range(len(spec.groups)), key=lambda g: -len(spec.groups[g].bits))
+    groups = [spec.groups[g].bits for g in order]
+    return _Args(
+        geo.staged_samples, geo.lp, geo.lq, spec.window, spec.chip_length,
+        spec.symbol_length, spec.pad_shift, spec.halo_staged,
+        spec.packet_length, plan.sub_tile, plan.n_strips, plan.strip_len,
+        plan.n_steps, plan.shift, plan.d_bits, plan.d_mask,
+        plan.lookback, plan.bit_words, len(groups), len(groups[0]),
+        (ctypes.c_int * 8)(*[len(b) for b in groups]),
+        (ctypes.c_ulonglong * 8)(*[sum(x << k for k, x in enumerate(b)) for b in groups]),
+        (ctypes.c_int * 8)(*order),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_stencil(spec: FrontendSpec, staged: torch.Tensor, first: bool) -> StencilOut:
@@ -119,17 +226,17 @@ def decode_stencil(spec: FrontendSpec, staged: torch.Tensor, first: bool) -> Ste
             f"decode_stencil: want {geo.staged_samples} contiguous samples, "
             f"got {staged.shape[0]} (contiguous={staged.is_contiguous()})"
         )
-    n_groups = len(spec.groups)
-    if n_groups > 8 or any(len(g.bits) > 64 for g in spec.groups):
+    if staged.data_ptr() % 16:
+        raise ValueError("decode_stencil: the staged buffer must be 16-byte aligned")
+    if len(spec.groups) > 8 or any(len(g.bits) > 64 for g in spec.groups):
         raise ValueError("decode_stencil: at most 8 groups of at most 64 preamble bits")
     dev = staged.device
+    args = _args(spec, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
+    # Fresh allocations: the caching allocator aligns them to 512 bytes, as
+    # the kernel's 16-byte stores need.
     bits = torch.empty(geo.lp, dtype=torch.uint8, device=dev)
     q6 = torch.empty(geo.lq, dtype=torch.uint8, device=dev) if spec.wants_r900 else None
     mask = torch.empty(spec.window, dtype=torch.uint8, device=dev)
-    pre_len = (ctypes.c_int * n_groups)(*[len(g.bits) for g in spec.groups])
-    pre_bits = (ctypes.c_ulonglong * n_groups)(
-        *[sum(b << k for k, b in enumerate(g.bits)) for g in spec.groups]
-    )
     fn = _launch_fn()
     with torch.cuda.device(dev):
         rc = fn(
@@ -137,20 +244,8 @@ def decode_stencil(spec: FrontendSpec, staged: torch.Tensor, first: bool) -> Ste
             bits.data_ptr(),
             q6.data_ptr() if q6 is not None else None,
             mask.data_ptr(),
-            geo.staged_samples,
-            geo.lp,
-            geo.lq,
-            spec.window,
-            spec.chip_length,
-            spec.symbol_length,
-            spec.pad_shift,
-            spec.halo_staged,
-            spec.packet_length,
-            geo.pre_reach,
             int(bool(first)),
-            n_groups,
-            ctypes.cast(pre_len, ctypes.c_void_p),
-            ctypes.cast(pre_bits, ctypes.c_void_p),
+            ctypes.byref(args),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
