@@ -10,7 +10,9 @@ a non-zero exit code and no result line:
 
 1. device   the card's name and power limit (nvidia-smi).
 2. build    the hand-written CUDA kernels from ``rtlamr_tpu_torch/csrc``
-            (one ``nvcc`` per source, all started together) and what
+            (one ``nvcc`` per library, all started together; the
+            channelizer is one library for each channel count and tap
+            class that the later phases launch) and what
             ``-Xptxas -v`` says about registers and shared memory.
 3. cli      ``python -m rtlamr_tpu_torch`` in-process on the golden capture
             ``tests/fixtures/sample.bin``: exactly its 14 SCM messages; the
@@ -45,12 +47,20 @@ a non-zero exit code and no result line:
             each launch), the plain version's, and the bound (bytes at the
             HBM rate against integer operations at the card's int32 rate).
 9. k2       the channelizer kernel against its plain PyTorch version on
-            the card, byte for byte, at N = 4, 12 and 32 channels over a
-            ragged frame count, with the stream head's zero history and with
-            a carried history; then at full width (N = 12, 8,388,608 frames)
-            its time (CUDA events around the wrapper and torch.profiler's
-            record of the kernel, L2 flushed before each launch), the plain
-            version's, the bound, and what ``-Xptxas -v`` says about it.
+            the card, byte for byte, at N = 1, 2, 3, 4, 5, 8, 12, 16, 31 and
+            32 channels with 8 taps a branch and at N = 12 with 4 and 12,
+            over a ragged frame count and fewer frames than one CTA's tile,
+            with the stream head's zero history, a carried history and a
+            chunk that starts off 16-byte alignment, into a fresh tensor and
+            into rows at an odd column; then at full width (N = 12,
+            8,388,608 frames, into the staged batch) its time (CUDA events
+            around the wrapper and torch.profiler's record of the kernel, L2
+            flushed before each launch), the plain version's, the bound
+            (bytes at the HBM rate against float32 instructions at 128 x SMs
+            x clocks.max.sm, counted in the cheapest exact form and in the
+            reference's order), the runtime tap loop's time at the same
+            shape (checked byte-equal too) beside the compiled-in taps', and
+            what ``-Xptxas -v`` says about each instantiation.
 10. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
@@ -65,6 +75,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,10 +90,14 @@ from rtlamr_tpu_torch.decoder import WindowDecoder
 from rtlamr_tpu_torch.decoder import pipeline as pipeline_mod
 from rtlamr_tpu_torch.ops import build
 from rtlamr_tpu_torch.ops.channelizer import ChannelizerSpec
+from rtlamr_tpu_torch.ops import channelizer_fused
 from rtlamr_tpu_torch.ops.channelizer_fused import (
+    FIXED_TAPS,
     channelize_requantize_fused,
     channelize_requantize_plain,
+    kernel_library,
 )
+from rtlamr_tpu_torch.ops.channelizer_mix import mix_op_count
 from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed
 from rtlamr_tpu_torch.ops.spec import make_frontend_spec, staged_geometry
 from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
@@ -98,15 +113,19 @@ ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
 KERNELS = ("decode_stencil", "channelizer")  # csrc/<name>.cu
 WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM rate, and the float32 rate outside
-#: the tensor cores (67 TFLOP/s), the channelizer's bound.
+#: H100 SXM HBM rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
-OPS_32BIT_PER_S = 67e12
 #: 32-bit integer add, compare, logic, shift and multiply-add results per
 #: clock per SM on Hopper (16 INT32 lanes in each of 4 partitions; CUDA C++
 #: Programming Guide, throughput table, compute capability 9.0). Times the
 #: SM count and the card's maximum SM clock, the decode stencil's bound.
 INT32_PER_CLOCK_PER_SM = 64
+#: float32 add and multiply instructions per clock per SM (32 FP32 lanes in
+#: each of 4 partitions, the same table), also the SM's whole issue width.
+#: The channelizer may fuse nothing, so each of its products and sums is one
+#: such instruction: its bound counts them at this rate, not at the 67
+#: TFLOP/s data-sheet figure, which counts an FMA as two operations.
+FP32_INSTR_PER_CLOCK_PER_SM = 128
 
 #: (block, meter ID, consumption) of the 14 SCM messages in sample.bin at
 #: chip length 78 (tests/test_ref_decoder.py SAMPLE_BIN_GOLDEN).
@@ -247,15 +266,15 @@ class HostClock:
         self._undo.clear()
 
 
-def int32_ops_per_s() -> float:
-    """The card's 32-bit integer rate: INT32_PER_CLOCK_PER_SM x SMs x the
-    maximum SM clock that nvidia-smi reports."""
+def card_rate(per_clock_per_sm: int) -> float:
+    """``per_clock_per_sm`` x the SM count x the maximum SM clock that
+    nvidia-smi reports: a rate of the card, per second."""
     mhz = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return INT32_PER_CLOCK_PER_SM * sms * float(mhz) * 1e6
+    return per_clock_per_sm * sms * float(mhz) * 1e6
 
 
 def stencil_work(spec, bits: torch.Tensor, int_rate: float):
@@ -365,11 +384,23 @@ def ptxas_lines(name: str):
 
 def phase_build():
     t0 = time.perf_counter()
-    build.build_many(KERNELS)  # one nvcc per source, all started together
+    # the channelizer's libraries: each (N, tap class) that phase k2 launches,
+    # which covers the wideband paths' N = 12 and 4 at 8 taps
+    libs = list(build.build_many(["decode_stencil"] + list(dict.fromkeys(
+        kernel_library(n, p == FIXED_TAPS) for n, p in K2_CASES))))  # one nvcc each, together
     secs = time.perf_counter() - t0
     emit("build", kernels=list(KERNELS), seconds=round(secs, 3),
-         nvcc_seconds={k: round(float(build.BUILD_LOG[k]["seconds"]), 3) for k in KERNELS},
-         ptxas={k: ptxas_lines(k) for k in KERNELS})
+         nvcc_seconds={k: round(float(build.BUILD_LOG[k]["seconds"]), 3) for k in libs},
+         ptxas={"decode_stencil": ptxas_lines("decode_stencil"),
+                "channelizer": ptxas_summary("channelizer")})
+
+
+def ptxas_summary(name: str) -> dict:
+    """Entries, most registers and spilled bytes over the entries of
+    ``csrc/<name>.cu`` (each entry's own in the k2_time line)."""
+    ent = ptxas_by_entry(name)
+    return {"entries": len(ent), "max_registers": max((r[0] or 0) for r in ent.values()),
+            "spill_bytes": sum((r[1] or 0) + (r[2] or 0) for r in ent.values())}
 
 
 def k1_cases(capture: np.ndarray):
@@ -436,7 +467,7 @@ def phase_k1(card: str, capture: np.ndarray):
                      flush=flush)
     plain_ms = event_ms(lambda: stencil_plain(spec72, staged, False), flush=flush)
     bits = stencil_plain(spec72, staged, False)[0]
-    rate = int32_ops_per_s()
+    rate = card_rate(INT32_PER_CLOCK_PER_SM)
     n_bytes, ops, bytes_ms, ops_ms, bound_ms, bound_by = stencil_work(spec72, bits, rate)
     del flush
     emit("k1_time", card=card, spec="all@72x1024", ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
@@ -590,20 +621,56 @@ def phase_batch(iq: np.ndarray, want_msgs) -> int:
     return launches
 
 
-def channelizer_work(spec: ChannelizerSpec, frames: int):
-    """(bytes, float32 ops) the channelizer function needs: the chunk and
-    the history read once, the N channel rows written once; per frame
-    4 N P branch products and sums, 8 N^2 mix products and sums, 6 N for
-    the DC removal (mask, shift, two conversions, two subtractions) and
-    12 N for the requantize (two adds, two roundings, four clamps, two
-    conversions, shift, or)."""
+def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float) -> dict:
+    """What the channelizer function needs on this input: bytes (the chunk
+    and the history read once, the N channel rows written once) at
+    HBM_BYTES_PER_S, and instructions at ``rate``, none fused, each part
+    counted in its cheapest exact form. A frame takes 4 N P - 2 N for the
+    branches (a product and a sum a tap and component, each chain starting
+    with its first product, not 0 + it), 6 N for the DC removal (two bit
+    operations and a subtraction a component: the byte into the float 2^22
+    + byte, minus 2^22 + 127.5), 9 N for the requantize (an add, a max, a
+    min and the rounding add a component, one byte permute), and the DFT mix
+    counted from the float32 tables (ops/channelizer_mix.py ``mix_op_count``:
+    one product a distinct coefficient magnitude of a branch, none for 1,
+    nothing for 0, a copy for each accumulator's first accumulation).
+    Leaving out a ``0 +`` or a product by 0 changes only a zero's sign, which
+    the requantize cannot see. In the reference's order the branches take 4
+    N P and the mix 8 N^2. The bound is the larger of the bytes' time and the
+    cheapest count's."""
     n, p = spec.n_channels, spec.taps_per_branch
     n_bytes = 2 * n * frames + 2 * n * p + 2 * n * frames
-    ops = frames * (4 * n * p + 8 * n * n + 18 * n)
+    muls, adds = mix_op_count(n)
+    ops = frames * (4 * n * p - 2 * n + 15 * n + muls + adds)
+    ops_ref = frames * (4 * n * p + 15 * n + 8 * n * n)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_32BIT_PER_S * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return n_bytes, ops, max(t_bytes, t_ops), bound_by
+    t_ops, t_ref = ops / rate * 1e3, ops_ref / rate * 1e3
+    return {"bytes": n_bytes, "bytes_ms": t_bytes, "f32_instr": ops, "f32_instr_ms": t_ops,
+            "f32_instr_reference_order": ops_ref, "bound_ms": max(t_bytes, t_ops),
+            "bound_ms_reference_order": max(t_bytes, t_ref),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def ptxas_by_entry(name: str) -> dict:
+    """What ``-Xptxas -v`` said of each kernel entry of ``csrc/<name>.cu``
+    over the libraries it is built as:
+    {entry: [registers, spill stores, spill loads]}, the entries of a
+    template named by their integer arguments (``N12P8`` for
+    ``channelize_kernel<12, 8>``)."""
+    out, entry = {}, None
+    logs = [str(v["log"]) for k, v in build.BUILD_LOG.items() if k.partition(".")[0] == name]
+    for ln in "\n".join(logs).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(1))
+            entry = "N{}P{}".format(*args) if len(args) == 2 else m.group(1)
+            out[entry] = [None, None, None]
+        elif entry and "spill stores" in ln:
+            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[entry][1:] = [int(st.group(1)), int(st.group(2))]
+        elif entry and "registers" in ln:
+            out[entry][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 def u16_diff(a: torch.Tensor, b: torch.Tensor):
@@ -618,35 +685,46 @@ def random_u16(rng, n_elems: int, dev) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, 256, 2 * n_elems, dtype=np.uint8).view(np.uint16)).to(dev)
 
 
+#: (N, P) of the k2 parity phase: every compiled-in N class at P = 8 and
+#: the runtime tap loop at P = 4 and 12
+K2_CASES = [(n, 8) for n in (1, 2, 3, 4, 5, 8, 12, 16, 31, 32)] + [(12, 4), (12, 12)]
+
+
 def phase_k2(card: str):
     dev = torch.device("cuda")
-    f = 3 * 8192 + 640 + 37  # ragged: the last 128-frame tile holds 37 frames
+    # ragged: at 2 frames a thread and 512 a tile the last tile holds 125
+    # frames and its last thread one; 37 frames are less than one tile
     max_err = 0
-    for n in (4, 12, 32):
-        spec = ChannelizerSpec(n_channels=n)
-        p = spec.history_frames
-        rng = np.random.default_rng(100 + n)
-        s1, s2 = random_u16(rng, n * f, dev), random_u16(rng, n * f, dev)
-        zero = torch.zeros(p * n, dtype=torch.uint16, device=dev)
-        for label, hist, chunk, first in (("head", zero, s1, True),
-                                          ("carried", s1[(f - p) * n :], s2, False)):
-            got = channelize_requantize_fused(spec, hist, chunk, first)
-            want = channelize_requantize_plain(spec, hist, chunk, first)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape == (n, f) and got.dtype == want.dtype,
-                  f"k2 N={n} {label}: shape/dtype {got.shape} {want.shape}")
-            differ, err = u16_diff(got, want)
-            max_err = max(max_err, err)
-            check(differ == 0, f"k2 N={n} {label}: {differ} samples differ (max {err} LSB)")
-            # Into rows wider than the frames: the partial last tile writes
-            # nothing past column f.
-            rows = torch.zeros((n, f + 256), dtype=torch.uint16, device=dev)
-            channelize_requantize_fused(spec, hist, chunk, first, out=rows[:, :f])
-            torch.cuda.synchronize()
-            check(torch.equal(rows[:, :f].view(torch.int16), want.view(torch.int16))
-                  and not bool(rows[:, f:].view(torch.int16).any()),
-                  f"k2 N={n} {label}: strided output differs or overruns the tail")
-        emit("k2_parity", n=n, frames=f, histories=["head", "carried"], exact=True)
+    for n, p in K2_CASES:
+        spec = ChannelizerSpec(n_channels=n, taps_per_branch=p)
+        rng = np.random.default_rng(100 + n + p)
+        for f in (3 * 8192 + 640 + 37, 37):
+            s1, s2 = random_u16(rng, n * f, dev), random_u16(rng, n * f + 1, dev)
+            zero = torch.zeros(p * n, dtype=torch.uint16, device=dev)
+            hist2 = random_u16(rng, p * n, dev)
+            for label, hist, chunk, first in (("head", zero, s1, True),
+                                              ("carried", hist2, s2[: n * f], False),
+                                              ("misaligned", hist2, s2[1:], False)):
+                got = channelize_requantize_fused(spec, hist, chunk, first)
+                want = channelize_requantize_plain(spec, hist, chunk, first)
+                torch.cuda.synchronize()
+                check(got.shape == want.shape == (n, f) and got.dtype == want.dtype,
+                      f"k2 N={n} P={p} {label}: shape/dtype {got.shape} {want.shape}")
+                differ, err = u16_diff(got, want)
+                max_err = max(max_err, err)
+                check(differ == 0, f"k2 N={n} P={p} F={f} {label}: {differ} samples differ "
+                      f"(max {err} LSB)")
+                # Into rows wider than the frames, at an odd column: nothing
+                # is written outside the view.
+                rows = torch.zeros((n, f + 256), dtype=torch.uint16, device=dev)
+                channelize_requantize_fused(spec, hist, chunk, first, out=rows[:, 3 : 3 + f])
+                torch.cuda.synchronize()
+                check(torch.equal(rows[:, 3 : 3 + f].view(torch.int16), want.view(torch.int16))
+                      and not bool(rows[:, :3].view(torch.int16).any())
+                      and not bool(rows[:, 3 + f :].view(torch.int16).any()),
+                      f"k2 N={n} P={p} F={f} {label}: strided output differs or overruns")
+        emit("k2_parity", n=n, p=p, frames=[3 * 8192 + 640 + 37, 37],
+             histories=["head", "carried", "misaligned"], exact=True)
 
     # Full width, as the wideband path runs it: N = 12, one super-step's
     # frames, written into the columns of a staged batch behind the halo.
@@ -668,21 +746,38 @@ def phase_k2(card: str):
     differ, err = u16_diff(out, want)
     max_err = max(max_err, err)
     check(differ == 0, f"k2 full width: {differ} samples differ (max {err} LSB)")
+    check(not bool(staged[:, :hs].view(torch.int16).any())
+          and not bool(staged[:, hs + w :].view(torch.int16).any()),
+          "k2 full width: written outside its columns of the staged batch")
+    # The runtime tap loop at the same shape: byte-equal, and its time beside
+    # that of the compiled-in taps, which it would replace.
+    def runtime_taps():
+        channelizer_fused._launch(spec, hist, chunk, False, out, fixed_taps=False)
+
+    out.zero_()
+    runtime_taps()
+    torch.cuda.synchronize()
+    differ, err = u16_diff(out, want)
+    max_err = max(max_err, err)
+    check(differ == 0, f"k2 full width, runtime tap loop: {differ} samples differ (max {err} LSB)")
     del want
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     ms = event_ms(lambda: channelize_requantize_fused(spec, hist, chunk, False, out=out), flush=flush)
     k_ms = kernel_ms(lambda: channelize_requantize_fused(spec, hist, chunk, False, out=out),
                      "channelize_kernel", flush=flush)
+    k_ms_runtime = kernel_ms(runtime_taps, "channelize_kernel", flush=flush)
     plain_ms = event_ms(lambda: channelize_requantize_plain(spec, hist, chunk, False), flush=flush)
     del flush, staged
-    n_bytes, ops, bound_ms, bound_by = channelizer_work(spec, w)
-    emit("k2_time", card=card, n=n, frames=w, ms=ms, kernel_ms=k_ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes, f32_ops=ops,
-         bound_ms_unfused=ops / (OPS_32BIT_PER_S / 2) * 1e3,
-         roofline_share=bound_ms / ms, max_abs_err=max_err,
-         ptxas=ptxas_lines("channelizer"))
-    return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": max_err}
+    rate = card_rate(FP32_INSTR_PER_CLOCK_PER_SM)
+    work = channelizer_work(spec, w, rate)
+    emit("k2_time", card=card, n=n, frames=w, ms=ms, kernel_ms=k_ms,
+         kernel_ms_runtime_taps=k_ms_runtime, plain_ms=plain_ms,
+         **work, f32_instr_per_s=rate, roofline_share=work["bound_ms"] / k_ms,
+         roofline_share_events=work["bound_ms"] / ms,
+         roofline_share_reference_order=work["bound_ms_reference_order"] / k_ms,
+         max_abs_err=max_err, ptxas=ptxas_by_entry("channelizer"))
+    return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"], "max_abs_err": max_err}
 
 
 def render_wideband_sliced(total: int, channel_bursts, n: int, chip_length: int,

@@ -21,19 +21,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .build import Library, load
 from .channelizer import (
+    MAX_CHANNELS,
     ChannelizerSpec,
-    _mix_matrix,
     channelize,
     planes_u16_to_frames,
     requantize_u16,
     taps_f32,
 )
+from .channelizer_mix import mix_header
 
 
 def _frames_of(spec: ChannelizerSpec, u16: torch.Tensor) -> torch.Tensor:
@@ -55,24 +58,116 @@ def channelize_requantize_plain(
     return requantize_u16(channelize(spec, hist_f, frames))
 
 
+#: the kernel's CTA size and the taps count it compiles in (csrc/channelizer.cu)
+THREADS = 256
+FIXED_TAPS = 8
+
+
+@dataclass(frozen=True)
+class ChannelizerPlan:
+    """How ``csrc/channelizer.cu`` cuts F frames of N channels with P taps.
+
+    CTA ``g`` of ``tiles`` owns output frames ``[g * tile, (g + 1) * tile)``
+    and stages the span of frames ``[g * tile - P, (g + 1) * tile)`` clipped
+    to F (stream elements ``[(g * tile - P) N, min((g + 1) * tile, F) N)``,
+    the negative ones from the history) into shared memory; its thread t
+    owns frames ``g * tile + per_thread * t + u``, u < per_thread. Span frame
+    s of plane j lies at float2 ``j * per_thread * sub + (s % per_thread) *
+    sub + s // per_thread``."""
+
+    per_thread: int
+    tile: int
+    tiles: int
+    sub: int
+    smem_bytes: int
+    fixed_taps: bool
+
+
+def frames_per_thread(n: int) -> int:
+    """Frames a thread of the kernel owns at N channels (its registers hold
+    2 N of accumulators for each)."""
+    return 2 if n <= 20 else 1
+
+
+def channelizer_plan(n: int, p: int, frames: int) -> ChannelizerPlan:
+    t = frames_per_thread(n)
+    tile = THREADS * t
+    sub = THREADS + -(-p // t)
+    return ChannelizerPlan(t, tile, -(-frames // tile), sub, n * t * sub * 8, p == FIXED_TAPS)
+
+
+class _Args(ctypes.Structure):
+    """``ChannelizeArgs`` of csrc/channelizer.cu."""
+
+    _fields_ = [
+        ("frames", ctypes.c_longlong),
+        ("out_stride", ctypes.c_longlong),
+        ("n", ctypes.c_int),
+        ("p", ctypes.c_int),
+        ("first", ctypes.c_int),
+        ("per_thread", ctypes.c_int),
+        ("tile", ctypes.c_int),
+        ("vec_in", ctypes.c_int),
+        ("vec_out", ctypes.c_int),
+        ("taps", ctypes.c_float * (FIXED_TAPS * MAX_CHANNELS)),
+    ]
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(spec: ChannelizerSpec, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """The float32 (taps, er, ei) tables of ``spec`` on ``device``."""
-    er, ei = _mix_matrix(spec)
-    return tuple(
-        torch.from_numpy(np.array(a, np.float32)).to(device) for a in (taps_f32(spec), er, ei)
-    )
+def _tables(spec: ChannelizerSpec, device: torch.device) -> Tuple[_Args, torch.Tensor]:
+    """What a launch of ``spec`` takes besides its tensors, made once per
+    spec: the argument block, with the taps in it when P is the compiled-in
+    count (the kernel reads them as constants; the DFT mix is compiled in,
+    ops/channelizer_mix.py), and the (P, N) float32 taps on ``device`` for
+    the runtime tap loop."""
+    n, p = spec.n_channels, spec.history_frames
+    taps = np.array(taps_f32(spec), np.float32)
+    plan = channelizer_plan(n, p, 1)
+    args = _Args(n=n, p=p, per_thread=plan.per_thread, tile=plan.tile)
+    if plan.fixed_taps:
+        args.taps[: p * n] = taps.ravel().tolist()
+    return args, torch.from_numpy(taps).to(device)
 
 
-def _launch_fn():
-    from .build import load
+def kernel_library(n: int, fixed_taps: bool) -> Library:
+    """The library of ``channelize_kernel<n, P>``, P = FIXED_TAPS with the
+    taps compiled in or 0 for the runtime tap loop, with the mix of ``n``
+    channels as its generated header; built on first use, one ``nvcc``."""
+    taps = FIXED_TAPS if fixed_taps else 0
+    return Library(f"channelizer.n{n}p{taps}", (f"-DRTLAMR_K2_N={n}", f"-DRTLAMR_K2_P={taps}"),
+                   ("channelizer_mix.cuh", mix_header(n)))
 
-    fn = load("channelizer").rtlamr_channelize
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn(n: int, fixed_taps: bool):
+    fn = load(kernel_library(n, fixed_taps)).rtlamr_channelize
     if fn.argtypes is None:
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp] * 6 + [ci, ci, cll, cll, ci, vp]
-        fn.restype = ci
+        vp = ctypes.c_void_p
+        fn.argtypes = [vp, vp, vp, vp, ctypes.POINTER(_Args), vp]
+        fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(spec: ChannelizerSpec, hist: torch.Tensor, wb: torch.Tensor, first: bool,
+            out: torch.Tensor, fixed_taps: bool) -> None:
+    """One launch on checked CUDA tensors, with the taps compiled in
+    (``fixed_taps``, P = FIXED_TAPS only) or through the runtime tap loop."""
+    dev = wb.device
+    fn = _launch_fn(spec.n_channels, fixed_taps)
+    template, taps = _tables(spec, dev)
+    args = _Args.from_buffer_copy(template)
+    args.frames, args.out_stride, args.first = out.shape[1], out.stride(0), int(bool(first))
+    with torch.cuda.device(dev):
+        rc = fn(
+            wb.data_ptr(),
+            hist.data_ptr(),
+            out.data_ptr(),
+            taps.data_ptr(),
+            ctypes.byref(args),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"channelizer: CUDA error {rc} at launch")
 
 
 def channelize_requantize_fused(
@@ -123,25 +218,7 @@ def channelize_requantize_fused(
         raise ValueError("channelizer: chunk, history and out must be on one device")
     if out is None:
         out = torch.empty((n, frames), dtype=torch.uint16, device=dev)
-    fn = _launch_fn()
-    taps, er, ei = _tables(spec, dev)
-    with torch.cuda.device(dev):
-        rc = fn(
-            wb.data_ptr(),
-            hist.data_ptr(),
-            out.data_ptr(),
-            taps.data_ptr(),
-            er.data_ptr(),
-            ei.data_ptr(),
-            n,
-            p,
-            frames,
-            out.stride(0),
-            int(bool(first)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"channelizer: CUDA error {rc} at launch")
+    _launch(spec, hist, wb, first, out, fixed_taps=p == FIXED_TAPS)
     channelize_requantize_fused.launches += 1
     return out
 

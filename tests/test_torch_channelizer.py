@@ -23,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from rtlamr_tpu_torch.ops import build
 from rtlamr_tpu_torch.ops import channelizer as tc
 from rtlamr_tpu_torch.ops.channelizer_fused import (
     channelize_requantize_fused,
     channelize_requantize_plain,
+    kernel_library,
 )
 
 # The suite runs in several worker processes at once; torch's default of one
@@ -235,28 +237,39 @@ def test_fused_on_cpu_equals_unfused_chain(n):
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """The CUDA kernel equals its plain version on the card, byte for byte,
-    at N = 4, 12 and 32 over a ragged frame count, with the stream head's
-    zero history and with a carried history, into a fresh tensor and into
-    the columns of a staged batch."""
+    at every compiled-in class of N (1, 2, 3, 4, 5, 8, 12, 16, 31, 32) with 8
+    taps a branch and at N = 12 with the runtime tap loop (4 and 12 taps),
+    over a ragged frame count and fewer frames than one tile, with the
+    stream head's zero history, a carried history and a chunk off 16-byte
+    alignment, into a fresh tensor and into the columns of a staged batch at
+    an odd offset; a history of the wrong length is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the channelizer kernel runs only there")
-    f = 3 * 8192 + 640 + 37  # the last 128-frame tile holds 37 frames
-    for n in (4, 12, 32):
-        spec = tc.ChannelizerSpec(n_channels=n)
-        p = spec.history_frames
-        wb = torch.from_numpy(random_wideband(n, f + p, seed=n).view(np.uint16).copy()).cuda()
-        hist, chunk = wb[: p * n], wb[p * n :]
-        for first in (True, False):
-            before = channelize_requantize_fused.launches
-            got = channelize_requantize_fused(spec, hist, chunk, first)
-            assert channelize_requantize_fused.launches == before + 1
-            want = channelize_requantize_plain(spec, hist, chunk, first)
-            staged = torch.zeros((n, f + 512), dtype=torch.uint16, device="cuda")
-            channelize_requantize_fused(spec, hist, chunk, first, out=staged[:, 256 : 256 + f])
-            torch.cuda.synchronize()
-            assert got.is_cuda and torch.equal(got.view(torch.int16), want.view(torch.int16))
-            assert torch.equal(staged[:, 256 : 256 + f].view(torch.int16), want.view(torch.int16))
-            assert int(staged[:, :256].view(torch.int16).abs().sum()) == 0
-            assert int(staged[:, 256 + f :].view(torch.int16).abs().sum()) == 0
+    cases = [(n, 8) for n in (1, 2, 3, 4, 5, 8, 12, 16, 31, 32)] + [(12, 4), (12, 12)]
+    # one library an (N, tap class), all nvcc together rather than one a case
+    build.build_many(list(dict.fromkeys(kernel_library(n, p == 8) for n, p in cases)))
+    # at 2 frames a thread and 512 a tile the last tile holds 125 frames and
+    # its last thread one; 37 frames are less than one tile
+    for n, p in cases:
+        spec = tc.ChannelizerSpec(n_channels=n, taps_per_branch=p)
+        for f in (3 * 8192 + 640 + 37, 37):
+            wb = torch.from_numpy(
+                random_wideband(n, f + p + 1, seed=n + p).view(np.uint16).copy()).cuda()
+            hist = wb[: p * n]
+            for first, lo in ((True, p * n), (False, p * n), (False, p * n + 1)):
+                chunk = wb[lo : lo + f * n]
+                before = channelize_requantize_fused.launches
+                got = channelize_requantize_fused(spec, hist, chunk, first)
+                assert channelize_requantize_fused.launches == before + 1
+                want = channelize_requantize_plain(spec, hist, chunk, first)
+                staged = torch.zeros((n, f + 512), dtype=torch.uint16, device="cuda")
+                channelize_requantize_fused(spec, hist, chunk, first, out=staged[:, 257 : 257 + f])
+                torch.cuda.synchronize()
+                what = f"N={n} P={p} F={f} first={first} offset={lo}"
+                assert got.is_cuda and torch.equal(got.view(torch.int16), want.view(torch.int16)), what
+                assert torch.equal(staged[:, 257 : 257 + f].view(torch.int16),
+                                   want.view(torch.int16)), what
+                assert int(staged[:, :257].view(torch.int16).abs().sum()) == 0, what
+                assert int(staged[:, 257 + f :].view(torch.int16).abs().sum()) == 0, what
     with pytest.raises(ValueError):
         channelize_requantize_fused(spec, hist[:-1], chunk, False)  # short history
