@@ -36,7 +36,21 @@ a non-zero exit code and no result line:
 7. wideband_cli  ``python -m rtlamr_tpu_torch -channels=4`` in-process on a
             small four-channel capture: exactly its planted (channel, id)
             set.
-8. k1       the decode-stencil kernel against its plain PyTorch version on
+8. resume   stream checkpoints on the card at full width: the decode
+            phase's capture cut at byte 0, inside window 2 and inside the
+            flush's partial window, and the wideband phase's cut inside its
+            second super-step, each drained, saved, loaded into a fresh
+            decoder, restored and run to the end (K1, and K2 on the restored
+            history); then ``-checkpoint`` through the CLI, ``-channels=1``
+            and ``-channels=12``, with SIGINT raised during a read, and the
+            resumed run. Every stream equals its straight run. Prints
+            save_ms, load_restore_ms and the CLI's skip-read ms.
+            resume_oracle: the port's NumPy oracle
+            ``ReferenceDecoder(arithmetic="int")`` over the decode phase's
+            capture, run in worker processes during the wideband_cli and
+            resume phases, equals the straight stream, and so every resumed
+            one.
+9. k1       the decode-stencil kernel against its plain PyTorch version on
             the card, byte for byte (bits, q6, mask), at the throughput spec
             (all four ``-msgtype=all`` protocols, chip length 72, 1024
             blocks a window) on random, planted, all-zero and 0x8080
@@ -46,7 +60,7 @@ a non-zero exit code and no result line:
             and by torch.profiler's record of the kernel (L2 flushed before
             each launch), the plain version's, and the bound (bytes at the
             HBM rate against integer operations at the card's int32 rate).
-9. k2       the channelizer kernel against its plain PyTorch version on
+10. k2      the channelizer kernel against its plain PyTorch version on
             the card, byte for byte, at N = 1, 2, 3, 4, 5, 8, 12, 16, 31 and
             32 channels with 8 taps a branch and at N = 12 with 4 and 12,
             over a ragged frame count and fewer frames than one CTA's tile,
@@ -61,7 +75,7 @@ a non-zero exit code and no result line:
             reference's order), the runtime tap loop's time at the same
             shape (checked byte-equal too) beside the compiled-in taps', and
             what ``-Xptxas -v`` says about each instantiation.
-10. the kernels line, the card line, and the result line.
+11. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version do not count.
@@ -74,8 +88,10 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -88,6 +104,12 @@ import torch
 from rtlamr_tpu_torch.cli.main import main as cli_main
 from rtlamr_tpu_torch.decoder import WindowDecoder
 from rtlamr_tpu_torch.decoder import pipeline as pipeline_mod
+from rtlamr_tpu_torch.decoder.checkpoint import (
+    capture_checkpoint,
+    load_checkpoint,
+    restore_checkpoint,
+)
+from rtlamr_tpu_torch.io import capture as capture_mod
 from rtlamr_tpu_torch.ops import build
 from rtlamr_tpu_torch.ops.channelizer import ChannelizerSpec
 from rtlamr_tpu_torch.ops import channelizer_fused
@@ -105,13 +127,15 @@ from rtlamr_tpu_torch.parallel import WidebandDecoder
 from rtlamr_tpu_torch.parallel import wideband as wideband_mod
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
-from rtlamr_tpu_torch.ref import synth
+from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_BIN = os.path.join(ROOT, "tests", "fixtures", "sample.bin")
 ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
 KERNELS = ("decode_stencil", "channelizer")  # csrc/<name>.cu
 WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
+#: worker processes of the oracle run (the card machine has 8 cores)
+ORACLE_WORKERS = 8
 
 #: H100 SXM HBM rate (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -321,27 +345,54 @@ def stencil_work(spec, bits: torch.Tensor, int_rate: float):
     return n_bytes, ops, t_bytes, t_ops, max(t_bytes, t_ops), bound_by
 
 
+#: spin kernels (``torch.cuda._sleep``) that open each torch.profiler
+#: session, and the clock cycles of each, about 1 ms at 1.98 GHz
+PROFILE_OPENERS, OPENER_CYCLES = 8, 2_000_000
+#: the spin kernel's name in the profiler's record
+OPENER_KERNEL = "spin_kernel"
+
+
+@contextlib.contextmanager
+def device_profile():
+    """torch.profiler over CPU and CUDA activity, opened by PROFILE_OPENERS
+    spin kernels that no caller counts. Once the process has run about 30
+    s, a session's record loses its first one to three kernels, whatever
+    the host waits first (seen on an H100 with torch 2.11: 19 of 20
+    launches recorded); the spin kernels take that loss."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_OPENERS):
+            torch.cuda._sleep(OPENER_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3, flush=None) -> float:
     """Mean device time of the CUDA kernel named ``kernel`` over ``reps``
     calls of ``fn``, from torch.profiler's record of it (so no host gap is
     counted), with ``flush`` zeroed before each call as in :func:`event_ms`.
     Raises when the profiler recorded no launch of it."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         for _ in range(reps):
             if flush is not None:
                 flush.zero_()
             fn()
-        torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel in e.key]
     n = sum(e.count for e in rows)
-    check(n == reps, f"profiler: {n} launches of {kernel} recorded for {reps} calls")
+    if n != reps:
+        starts = sorted(e.time_range.start for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and kernel in e.key)
+        gaps = [round(b - a) for a, b in zip(starts, starts[1:])]
+        check(False, f"profiler: {n} launches of {kernel} recorded for {reps} calls; "
+              f"us between recorded starts {gaps}")
     return sum(e.self_device_time_total for e in rows) / n / 1e3
 
 
@@ -351,14 +402,12 @@ def profile_window(fn):
     time as (name, calls, ms). All are empty or 0 when the profiler records
     no device activity."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and OPENER_KERNEL not in e.key]
 
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     top = [(e.key[:60], e.count, e.self_device_time_total / 1e3) for e in rows[:6]]
@@ -536,13 +585,14 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
 
     # Where the feed path's host time goes. The timed calls nest:
     # _process_window > process_host_staged > {the window program's enqueue,
-    # _dispatch > _complete_inflight > {_fetch, _parse_window}, _enqueue_fetch};
-    # flush's drain calls _complete_inflight outside _dispatch.
+    # _dispatch > _complete_inflight > {fetch, complete > _parse_window},
+    # enqueue_fetch}; flush's drain calls _complete_inflight outside _dispatch.
     clock = HostClock()
     for name in ("_process_window", "process_host_staged", "_dispatch",
-                 "_complete_inflight", "_fetch", "_parse_window", "_enqueue_fetch"):
+                 "_complete_inflight", "_parse_window"):
         clock.wrap(dec, name)
-    clock.wrap(pipeline_mod, "decode_window_staged_packed")
+    for name in ("decode_window_staged_packed", "fetch", "enqueue_fetch"):
+        clock.wrap(pipeline_mod, name)
     decode_stencil.launches = 0
     t0 = time.perf_counter()
     try:
@@ -556,12 +606,12 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     host_ms = {k: v * 1e3 / n_win for k, v in {
         "stage": s["_process_window"] - s["process_host_staged"],
         "h2d": (s["process_host_staged"] - s["decode_window_staged_packed"]
-                - s["_dispatch"] - s["_enqueue_fetch"]),
+                - s["_dispatch"] - s["enqueue_fetch"]),
         "enqueue_window_program": s["decode_window_staged_packed"],
-        "enqueue_d2h": s["_enqueue_fetch"],
-        "wait_for_card": s["_fetch"],
+        "enqueue_d2h": s["enqueue_fetch"],
+        "wait_for_card": s["fetch"],
         "parse": s["_parse_window"],
-        "unpack": s["_complete_inflight"] - s["_fetch"] - s["_parse_window"],
+        "unpack": s["_complete_inflight"] - s["fetch"] - s["_parse_window"],
         "feed_other": elapsed - s["_process_window"]
         - (s["_complete_inflight"] - s["_dispatch"]),
     }.items()}
@@ -873,17 +923,16 @@ def phase_wideband(card: str, window_blocks: int = 1024):
     torch.cuda.synchronize()
 
     # Where the host time of a super-step goes. The timed calls nest:
-    # _process_chunk > {_wideband_step > decode_windows_scan, _enqueue_fetch,
-    # _complete > {_fetch, _parse_window of each channel}}; flush's drain
-    # calls _complete outside _process_chunk.
+    # _process_chunk > {_wideband_step > decode_windows_scan, enqueue_fetch,
+    # _complete > {fetch, each channel's complete > _parse_window}}; flush's
+    # drain calls _complete outside _process_chunk.
     clock = HostClock()
     for name in ("_process_chunk", "_complete", "drain"):
         clock.wrap(dec, name)
-    clock.wrap(wideband_mod, "_wideband_step")
-    clock.wrap(wideband_mod, "decode_windows_scan")
-    clock.wrap(dec._chan[0], "_enqueue_fetch")
-    clock.wrap(WindowDecoder, "_fetch")
+    for name in ("_wideband_step", "decode_windows_scan", "enqueue_fetch", "fetch"):
+        clock.wrap(wideband_mod, name)
     for c in dec._chan:
+        clock.wrap(c, "complete")
         clock.wrap(c, "_parse_window")
     decode_stencil.launches = 0
     channelize_requantize_fused.launches = 0
@@ -907,14 +956,15 @@ def phase_wideband(card: str, window_blocks: int = 1024):
           f"wideband: {k1} stencil launches for {snap['windows_decoded']} windows")
     complete_in_steps = s["_complete"] - s["drain"]
     host_ms = {k: v * 1e3 / steps for k, v in {
-        "h2d": (s["_process_chunk"] - s["_wideband_step"] - s["_enqueue_fetch"]
+        "h2d": (s["_process_chunk"] - s["_wideband_step"] - s["enqueue_fetch"]
                 - complete_in_steps),
         "stage_and_enqueue_k2": s["_wideband_step"] - s["decode_windows_scan"],
         "enqueue_window_programs": s["decode_windows_scan"],
-        "enqueue_d2h": s["_enqueue_fetch"],
-        "wait_for_card": s["_fetch"],
+        "enqueue_d2h": s["enqueue_fetch"],
+        "wait_for_card": s["fetch"],
         "parse": s["_parse_window"],
-        "unpack_and_dedup": s["_complete"] - s["_fetch"] - s["_parse_window"],
+        "unpack": s["complete"] - s["_parse_window"],
+        "ghost_dedup": s["_complete"] - s["fetch"] - s["complete"],
         "feed_other": elapsed - s["_process_chunk"] - s["drain"],
     }.items()}
 
@@ -948,6 +998,189 @@ def phase_wideband(card: str, window_blocks: int = 1024):
          super_step_ms=step_ms, super_step_host_enqueue_ms=enqueue_ms,
          super_step_kernels=kernels, super_step_kernel_ms=busy_ms,
          super_step_top_kernels=top)
+    return k1, k2, (wb, planted, msgs)
+
+
+def oracle_segment(task):
+    """(block, str(message)) of the port's NumPy oracle,
+    ``ReferenceDecoder(arithmetic="int")``, over blocks [lo, hi) of a capture.
+    ``seg`` holds the capture from ``warm`` blocks before ``lo``: the
+    oracle's state (its signal, bit and R900 buffers, BufferLength samples
+    each, and the previous block's digests) is then that of a run from the
+    stream head, so the segments together give the one sequential run."""
+    seg, lo, warm, names, chip_length = task
+    dec = ReferenceDecoder([new_parser(n, chip_length) for n in names], arithmetic="int")
+    return [(lo - warm + b, str(m)) for b, m in dec.decode_capture(seg) if b >= warm]
+
+
+def start_oracle(pool, iq: np.ndarray, names, chip_length: int, parts: int):
+    """Futures of :func:`oracle_segment` over ``parts`` block ranges of
+    ``iq``, on the worker processes of ``pool``."""
+    cfg = build_decoder_config([new_parser(n, chip_length) for n in names])
+    bs2, n_blocks = cfg.block_size2, iq.size // cfg.block_size2
+    warm = -(-cfg.buffer_length // cfg.block_size) + 2
+    bounds = np.linspace(0, n_blocks, parts + 1).astype(int)
+    futures = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        w = min(warm, int(lo))
+        futures.append(pool.submit(oracle_segment, (
+            iq[(lo - w) * bs2 : hi * bs2], int(lo), w, tuple(names), chip_length)))
+    return futures
+
+
+class SigintOnRead:
+    """Wraps ``FileSource.read`` of the CLI: raises SIGINT in the process on
+    the ``n``-th read (which still returns its bytes), as a user's Ctrl-C
+    during a decode; checks that the CLI took SIGINT over (only a flag,
+    read between feeds) before it does."""
+
+    def __init__(self, n: int):
+        self.n, self.calls = n, 0
+        self.orig = capture_mod.FileSource.read
+
+    def __enter__(self):
+        wrapper = self
+
+        def read(source, n_bytes):
+            wrapper.calls += 1
+            if wrapper.calls == wrapper.n:
+                check(signal.getsignal(signal.SIGINT) is not signal.default_int_handler,
+                      "resume cli: -checkpoint did not take SIGINT over")
+                signal.raise_signal(signal.SIGINT)
+            return wrapper.orig(source, n_bytes)
+
+        capture_mod.FileSource.read = read
+        return self
+
+    def __exit__(self, *exc):
+        capture_mod.FileSource.read = self.orig
+
+
+def run_cli(argv):
+    """The in-process CLI: (exit code, JSON records without their Time,
+    stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
+    for r in recs:
+        r.pop("Time")
+    return rc, recs, err.getvalue()
+
+
+def cli_resume(label: str, path: str, argv, interrupt_read: int) -> dict:
+    """-checkpoint through the CLI on the capture at ``path``: a straight
+    run (which must leave no checkpoint), a run interrupted by SIGINT during
+    read ``interrupt_read``, then the resumed run; the two runs' records
+    must equal the straight run's."""
+    ck = path + ".ck"
+    argv = argv + ["-format=json", f"-fromfile={path}", f"-checkpoint={ck}"]
+    rc, want, _ = run_cli(argv)
+    check(rc == 0 and want, f"resume cli {label}: straight run rc {rc}, {len(want)} messages")
+    check(not os.path.exists(ck + ".meta.json"), f"resume cli {label}: a run to EOF saved")
+    with SigintOnRead(interrupt_read) as sig:
+        rc, head, err = run_cli(argv)
+    check(rc == 0 and "interrupted" in err and sig.calls == interrupt_read,
+          f"resume cli {label}: interrupted run rc {rc}, {sig.calls} reads: {err[-300:]}")
+    saved = re.search(r"checkpoint saved at byte (\d+)", err)
+    check(saved is not None, f"resume cli {label}: no checkpoint saved")
+    rc, tail, err = run_cli(argv)
+    skip = re.search(r"resumed from checkpoint at byte (\d+) \(read past in ([\d.]+) ms\)", err)
+    check(rc == 0 and skip is not None and skip.group(1) == saved.group(1),
+          f"resume cli {label}: resumed run rc {rc}: {err[-300:]}")
+    check(head + tail == want, f"resume cli {label}: {len(head)} + {len(tail)} records, "
+          f"straight {len(want)}, or they differ")
+    check(not os.path.exists(ck + ".meta.json"), f"resume cli {label}: checkpoint left at EOF")
+    return {"messages": len(want), "before_interrupt": len(head),
+            "boundary": int(saved.group(1)), "skip_read_ms": float(skip.group(2))}
+
+
+def phase_resume(card: str, iq: np.ndarray, nb_msgs, wide) -> tuple:
+    """Checkpoint and resume on the card at full width: the narrowband
+    throughput capture cut at byte 0, inside window 2 and inside the
+    flush's partial window, the 12-channel capture cut inside its second
+    super-step, each saved, loaded into a fresh decoder, restored and run
+    to the end; then the CLI's -checkpoint, narrowband and 12-channel, with
+    SIGINT during a read. Every stream equals its straight run."""
+    wb, wb_planted, wb_msgs = wide
+
+    def nb_fresh():
+        return WindowDecoder([new_parser(n, 72) for n in ALL], window_blocks=1024, max_hits=256)
+
+    def wb_fresh():
+        return WidebandDecoder([new_parser(x, 72) for x in ALL], n_channels=WIDE_CHANNELS,
+                               window_blocks=1024, max_hits=256)
+
+    def feed_all(dec, data, flush):
+        chunk = 1 << 18  # the CLI's read at these widths
+        out = []
+        for pos in range(0, data.size, chunk):
+            out.extend(dec.feed(data[pos : pos + chunk]))
+        out.extend(dec.flush() if flush else dec.drain())
+        return out
+
+    def as_rows(msgs):
+        return [(*t[:-1], str(t[-1])) for t in msgs]
+
+    t_phase = time.perf_counter()
+    decode_stencil.launches = 0
+    channelize_requantize_fused.launches = 0
+    save_ms, load_restore_ms, cuts = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        nb_bytes = nb_fresh().window_bytes
+        wide_bytes = wb_fresh().window_bytes
+        plan = [
+            ("byte0", nb_fresh, iq, 0, nb_msgs),
+            ("inside_window2", nb_fresh, iq, 2 * nb_bytes + nb_bytes // 3 + 1, nb_msgs),
+            ("inside_final_partial", nb_fresh, iq,
+             4 * nb_bytes + (iq.size - 4 * nb_bytes) // 2 + 1, nb_msgs),
+            ("wideband_step2", wb_fresh, wb, wide_bytes + wide_bytes // 3 + 1, wb_msgs),
+        ]
+        for label, fresh, data, cut, straight in plan:
+            a = fresh()
+            got = as_rows(feed_all(a, data[:cut], flush=False))
+            boundary = cut - a.discard_pending()
+            path = os.path.join(tmp, label)
+            t0 = time.perf_counter()
+            capture_checkpoint(a, boundary).save(path)
+            save_ms[label] = (time.perf_counter() - t0) * 1e3
+            del a
+            b = fresh()
+            t0 = time.perf_counter()
+            restore_checkpoint(b, load_checkpoint(path))
+            torch.cuda.synchronize()
+            load_restore_ms[label] = (time.perf_counter() - t0) * 1e3
+            k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+            got += as_rows(feed_all(b, data[boundary:], flush=True))
+            want = as_rows(straight)
+            check(got == want, f"resume {label}: {len(got)} messages, straight {len(want)}, "
+                  "or they differ")
+            check(decode_stencil.launches > k1, f"resume {label}: K1 not launched after restore")
+            if fresh is wb_fresh:
+                check(channelize_requantize_fused.launches > k2,
+                      f"resume {label}: K2 not launched after restore")
+                found = {(c, m.msg_type(), m.meter_id()) for c, _, m in straight}
+                check(found == wb_planted, f"resume {label}: planted packets missing")
+            cuts[label] = {"cut": cut, "boundary": boundary, "messages": len(got)}
+        nb_path = os.path.join(tmp, "narrowband.bin")
+        iq.tofile(nb_path)
+        wb_path = os.path.join(tmp, "wideband.bin")
+        wb[: wide_bytes + wide_bytes // 2].tofile(wb_path)  # 1.5 super-steps
+        chunk = 1 << 18
+        cli = {
+            "channels_1": cli_resume(
+                "channels=1", nb_path, ["-msgtype=all", "-symbollength=72", "-windowblocks=1024"],
+                (2 * nb_bytes + nb_bytes // 2) // chunk),
+            "channels_12": cli_resume(
+                "channels=12", wb_path, ["-msgtype=all", "-symbollength=72", "-windowblocks=1024",
+                                         f"-channels={WIDE_CHANNELS}"],
+                (wide_bytes + wide_bytes // 4) // chunk),
+        }
+    k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+    check(k1 > 0 and k2 > 0, f"resume: launches k1 {k1}, k2 {k2}")
+    emit("resume", card=card, cuts=cuts, save_ms=save_ms, load_restore_ms=load_restore_ms,
+         cli=cli, cli_skip_read_ms={k: v["skip_read_ms"] for k, v in cli.items()},
+         launches_k1=k1, launches_k2=k2, seconds=time.perf_counter() - t_phase)
     return k1, k2
 
 
@@ -1012,9 +1245,28 @@ def main() -> int:
     cli_launches = phase_cli()
     msgs, launches = phase_decode(card, iq, planted)
     batch_launches = phase_batch(iq, msgs)
+    wide_k1, wide_k2, wide = phase_wideband(card)
+    # The port's oracle over the throughput capture in worker processes
+    # while the untimed wideband_cli and resume phases run, and waited for
+    # before the kernel phases time anything.
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t_oracle = time.perf_counter()
+        oracle = start_oracle(pool, iq, ALL, 72, ORACLE_WORKERS)
+        wcli_k1, wcli_k2 = phase_wideband_cli()
+        resume_k1, resume_k2 = phase_resume(card, iq, msgs, wide)
+        t_wait = time.perf_counter()
+        rows = [r for f in oracle for r in f.result()]
+    finally:
+        pool.shutdown(cancel_futures=True)
+    del wide
+    want = [(b, str(m)) for b, m in msgs]
+    check(rows == want, f"resume_oracle: the oracle gives {len(rows)} messages, the "
+          f"straight stream (and so every resumed one) {len(want)}, or they differ")
+    emit("resume_oracle", messages=len(rows), equal=True, workers=ORACLE_WORKERS,
+         seconds=time.perf_counter() - t_oracle, waited_s=time.perf_counter() - t_wait)
     del msgs
-    wide_k1, wide_k2 = phase_wideband(card)
-    wcli_k1, wcli_k2 = phase_wideband_cli()
     k1 = phase_k1(card, iq)
     del iq
     k2 = phase_k2(card)
@@ -1028,6 +1280,7 @@ def main() -> int:
         "launches_batch": batch_launches,
         "launches_wideband": wide_k1,
         "launches_wideband_cli": wcli_k1,
+        "launches_resume": resume_k1,
         "parity": "exact",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -1044,6 +1297,7 @@ def main() -> int:
         "replaces": "rtlamr_tpu/ops/pallas_channelizer.py:58",
         "launches": wide_k2,
         "launches_wideband_cli": wcli_k2,
+        "launches_resume": resume_k2,
         "parity": "exact",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],

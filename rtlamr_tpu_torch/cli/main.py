@@ -13,23 +13,33 @@ search on the card) or, with ``-channels`` > 1, the
 kernel, then the same window program for every channel), with
 ``-crosschanneldedup``.
 
-Not ported yet, and refused with exit code 1 until their slice lands:
-``-mesh`` (multi-GPU, also with ``-channels``), ``-coordinator``
-(multi-host), ``-checkpoint`` (stream checkpoints, narrowband and wideband)
-and ``-ingest=native`` (the C++ transport).
+``-checkpoint`` resumes and saves the stream position of both decoders
+(``decoder/checkpoint.py``). Not ported yet, and refused with exit code 1
+until their slice lands: ``-mesh`` (multi-GPU, also with ``-channels`` and
+with ``-checkpoint``), ``-coordinator`` (multi-host) and ``-ingest=native``
+(the C++ transport).
 """
 
 from __future__ import annotations
 
 import datetime
 import itertools
+import signal
 import sys
+import threading
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from .. import __version__
+from ..decoder.checkpoint import (
+    capture_checkpoint,
+    checkpoint_exists,
+    load_checkpoint,
+    remove_checkpoint,
+    restore_checkpoint,
+)
 from ..decoder.pipeline import WindowDecoder
 from ..device import DeviceLike
 from ..io.capture import (
@@ -81,12 +91,12 @@ def _refuse_unported(fs: FlagSet) -> None:
         raise SystemExit(1)
     mesh = ("-channels with -mesh (channel x time mesh)" if channels > 1
             else "-mesh (time-sharded decode)")
+    if fs.value("checkpoint"):
+        mesh += " and its -checkpoint"
     unported = [
         (fs.value("mesh"), mesh, "the multi-GPU slice"),
         (bool(fs.value("coordinator")), "-coordinator (multi-host decode)",
          "the multi-host slice"),
-        (bool(fs.value("checkpoint")), "-checkpoint (stream checkpoints)",
-         "the checkpoint slice"),
     ]
     for active, what, slice_name in unported:
         if active:
@@ -226,9 +236,29 @@ class Receiver:
         return RtlTcpSource(client)
 
 
+def _read_past(source: IQSource, n_bytes: int, keep: int):
+    """Read and drop the first ``n_bytes`` of ``source``: (bytes read, the
+    last ``keep`` of them)."""
+    done, tail = 0, np.zeros(0, np.uint8)
+    while done < n_bytes:
+        part = source.read(min(1 << 20, n_bytes - done))
+        if part.size == 0:
+            break
+        done += part.size
+        if keep:
+            tail = np.concatenate([tail, part])[-keep:]
+    return done, tail
+
+
 def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     """Decode loop; messages go to ``out`` (``sys.stdout`` as it is at call
-    time when None, so a caller's stdout redirection applies)."""
+    time when None, so a caller's stdout redirection applies).
+
+    With ``-checkpoint=PATH`` a run resumes from PATH's checkpoint when one
+    is there, and a run that stops before the end of its stream (-single,
+    -duration, SIGINT) saves one; a run to the end of its stream leaves
+    none. SIGINT is then taken only between two feeds, so the saved
+    position always matches the decoder's state."""
     from ..utils.observability import RateWatchdog, profile_trace
 
     out = sys.stdout if out is None else out
@@ -239,6 +269,17 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     _log(receiver.cfg.describe())
     if receiver.wideband:
         receiver.log_channel_plan()
+    dec = receiver.decoder
+    ckpt_path = fs.value("checkpoint")
+    resume = None
+    if ckpt_path and checkpoint_exists(ckpt_path):
+        try:
+            resume = load_checkpoint(ckpt_path)
+            restore_checkpoint(dec, resume)
+        except ValueError as e:
+            _log(f"-checkpoint: {e}")
+            return 1
+
     dumper = SampleDumper(fs.value("samplefile"))
     encoder = make_encoder(fs.value("format"), out, fs.value("samplefile"))
 
@@ -251,7 +292,6 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     deadline = time.monotonic() + duration if duration > 0 else None
 
     source = receiver.open_source()
-    dec = receiver.decoder
     wideband = receiver.wideband
     nch = dec.n_channels if wideband else 1
     live = not fs.value("fromfile")
@@ -271,14 +311,34 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
     # dumps (main.go:225-230,279-284). Blocks are retained up to the
     # dispatch-ahead decode latency (two windows) plus the ring capacity.
     ring_cap_blocks = -(-dec.cfg.buffer_length * 2 // dec.cfg.block_size2)
+    ring_bytes = nch * dec.cfg.buffer_length * 2
     ring = SampleRing(
         dumper,
         block_bytes,
-        nch * dec.cfg.buffer_length * 2,
+        ring_bytes,
         max_lag_blocks=2 * (dec.window_bytes // block_bytes)
         + ring_cap_blocks
         + 4,
     )
+
+    consumed = 0
+    if resume is not None:
+        consumed = resume.byte_offset
+        history, note = None, ""
+        if not live:
+            # Read past the capture bytes already decoded.
+            t0 = time.perf_counter()
+            keep = (ring_bytes // block_bytes + 1) * block_bytes if dumper.active else 0
+            done, history = _read_past(source, consumed, keep)
+            if done < consumed:
+                _log(f"-checkpoint: the capture ends at byte {done}, before the "
+                     f"checkpoint's {consumed}")
+                source.close()
+                dumper.close()
+                return 1
+            note = f" (read past in {(time.perf_counter() - t0) * 1e3:.3f} ms)"
+        ring.resume_at(consumed // block_bytes, history)
+        _log(f"resumed from checkpoint at byte {consumed}{note}")
 
     def by_block(msgs):
         """Decode results as block-major (block, channel, msg):
@@ -289,73 +349,111 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
             return [(b, c, m) for c, b, m in sorted(msgs, key=lambda t: (t[1], t[0]))]
         return [(b, None, m) for b, m in msgs]
 
-    dropped_seen = 0
-    stop = False
-    try:
-        with profile_trace(fs.value("profiledir") or None):
-            while not stop:
-                if deadline is not None and time.monotonic() >= deadline:
-                    _log("time limit reached")
-                    break
-                try:
-                    chunk = source.read(chunk_bytes)
-                except (EOFError, OSError) as e:
-                    # A stalled or closed stream cancels the receiver, like
-                    # the reference's read-deadline path (main.go:168-181).
-                    _log(f"source read: {e}")
-                    chunk = np.zeros(0, np.uint8)
-                if watchdog is not None:
-                    watchdog.add_bytes(chunk.size)
-                    dropped = source.dropped_bytes()
-                    if dropped > dropped_seen:
-                        _log(
-                            "ingest ring overflow: "
-                            f"{dropped} bytes dropped so far"
-                        )
-                    dropped_seen = dropped
-                    if not wideband:
-                        dec.metrics.extra["bytes_dropped"] = dropped
-                if chunk.size == 0:
-                    msgs = dec.flush()
-                else:
-                    ring.feed(chunk)
-                    msgs = dec.feed(chunk)
-                    if receiver.latency:
-                        # Synchronous completion: skip the one-window
-                        # dispatch-ahead so results emit as soon as the
-                        # window computes (throughput preset keeps it).
-                        msgs = list(msgs) + list(dec.drain())
-                # Messages arrive ordered by block; replay the reference's
-                # per-block ring walk (main.go:225-230) so Offset/Length and
-                # the post-block buffer dump match main.go:242-284 exactly.
-                for block, group in itertools.groupby(by_block(msgs), key=lambda t: t[0]):
-                    ring.advance_to(block)
-                    for _b, chan, msg in group:
-                        encoder.encode(
-                            LogMessage(
-                                time=datetime.datetime.now(),
-                                offset=dumper.offset(),
-                                length=ring.length,
-                                msg=msg,
-                                channel=chan,
-                            )
-                        )
-                        if single:
-                            if not waiting_ids:
-                                stop = True
-                                break
-                            waiting_ids.discard(msg.meter_id())
-                    ring.dump()
-                    if single and not waiting_ids:
-                        _log("single: received messages from all meters")
-                        stop = True
-                    if stop:
+    def emit(msgs, last: bool = False) -> bool:
+        """Encode ``msgs`` in the reference's per-block ring walk
+        (main.go:225-230), so Offset/Length and the post-block buffer dump
+        match main.go:242-284 exactly. True once -single has all it waits
+        for; ``last`` (the drain before a checkpoint) encodes them all."""
+        done = False
+        for block, group in itertools.groupby(by_block(msgs), key=lambda t: t[0]):
+            ring.advance_to(block)
+            for _b, chan, msg in group:
+                encoder.encode(
+                    LogMessage(
+                        time=datetime.datetime.now(),
+                        offset=dumper.offset(),
+                        length=ring.length,
+                        msg=msg,
+                        channel=chan,
+                    )
+                )
+                if single and not last:
+                    if not waiting_ids:
+                        done = True
                         break
-                if chunk.size == 0:
-                    break
-    except KeyboardInterrupt:
-        _log("interrupted")
+                    waiting_ids.discard(msg.meter_id())
+            ring.dump()
+            if single and not last and not waiting_ids:
+                _log("single: received messages from all meters")
+                done = True
+            if done:
+                break
+        return done
+
+    # With -checkpoint, SIGINT only sets a flag, read at the top of each
+    # iteration: the stream then stops between two feeds, where the decoder
+    # state and ``consumed`` agree.
+    sigint = []
+    prev_handler, handler_set = None, False
+    if ckpt_path and threading.current_thread() is threading.main_thread():
+        prev_handler = signal.signal(signal.SIGINT, lambda *_: sigint.append(True))
+        handler_set = True
+    dropped_seen = 0
+    stop = eof = False
+    at_boundary = True  # no feed is under way
+    try:
+        try:
+            with profile_trace(fs.value("profiledir") or None):
+                while not stop:
+                    if sigint:
+                        _log("interrupted")
+                        break
+                    if deadline is not None and time.monotonic() >= deadline:
+                        _log("time limit reached")
+                        break
+                    try:
+                        chunk = source.read(chunk_bytes)
+                    except (EOFError, OSError) as e:
+                        # A stalled or closed stream cancels the receiver, like
+                        # the reference's read-deadline path (main.go:168-181).
+                        _log(f"source read: {e}")
+                        chunk = np.zeros(0, np.uint8)
+                    if watchdog is not None:
+                        watchdog.add_bytes(chunk.size)
+                        dropped = source.dropped_bytes()
+                        if dropped > dropped_seen:
+                            _log(
+                                "ingest ring overflow: "
+                                f"{dropped} bytes dropped so far"
+                            )
+                        dropped_seen = dropped
+                        if not wideband:
+                            dec.metrics.extra["bytes_dropped"] = dropped
+                    at_boundary = False
+                    if chunk.size == 0:
+                        eof = True
+                        msgs = dec.flush()
+                    else:
+                        ring.feed(chunk)
+                        msgs = dec.feed(chunk)
+                        consumed += chunk.size
+                        if receiver.latency:
+                            # Synchronous completion: skip the one-window
+                            # dispatch-ahead so results emit as soon as the
+                            # window computes (throughput preset keeps it).
+                            msgs = list(msgs) + list(dec.drain())
+                    stop = emit(msgs)
+                    at_boundary = True
+                    if eof:
+                        break
+        except KeyboardInterrupt:
+            _log("interrupted")
+        if ckpt_path:
+            if eof:  # a flushed (complete) decode needs none
+                remove_checkpoint(ckpt_path)
+            elif not at_boundary:
+                _log("-checkpoint: interrupted inside a feed; no checkpoint saved")
+            else:
+                # Emit what is still in the dispatch-ahead pipeline, then
+                # checkpoint at the last window boundary (the bytes fed since
+                # are read again on resume).
+                emit(dec.drain(), last=True)
+                boundary = consumed - dec.discard_pending()
+                capture_checkpoint(dec, boundary).save(ckpt_path)
+                _log(f"checkpoint saved at byte {boundary}")
     finally:
+        if handler_set:
+            signal.signal(signal.SIGINT, prev_handler)
         if fs.value("metrics"):
             snap = dec.metrics_snapshot() if wideband else dec.metrics.snapshot()
             _log("metrics:", snap)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +48,42 @@ from ..utils.observability import Metrics
 from .dedup import BlockDeduper
 
 FilterFn = Callable[[Message], bool]
+
+
+class WindowMeta(NamedTuple):
+    """A dispatched window, as :meth:`WindowDecoder.complete` needs it."""
+
+    #: the (staged_samples,) u16 buffer on the device, re-decoded when the
+    #: window's hits overflow the result buffer
+    staged: torch.Tensor
+    #: the stream-head flag the window program ran with
+    first: bool
+    #: blocks of the window that hold capture (None: all of them)
+    valid_blocks: Optional[int]
+    window_index: int
+    #: host monotonic clock at dispatch (None: feed-to-emit not timed)
+    dispatched_at: Optional[float] = None
+
+
+def enqueue_fetch(buf: torch.Tensor):
+    """Start the device-to-host copy of a packed result buffer: into pinned
+    memory, non-blocking, with an event to wait on. Returns the handle that
+    :func:`fetch` takes."""
+    if buf.device.type != "cuda":
+        return buf, None
+    host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def fetch(handle) -> np.ndarray:
+    """Wait for an :func:`enqueue_fetch` copy; the buffer as numpy."""
+    host, event = handle
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
 
 
 class WindowDecoder:
@@ -112,9 +148,6 @@ class WindowDecoder:
         #: one-deep dispatch-ahead pipeline: (result handle, meta) of the
         #: window whose results have not been parsed yet.
         self._inflight = None
-        #: window_index -> monotonic dispatch time; consumed at completion
-        #: to expose the feed->emit latency (metrics feed_to_emit_ms_*).
-        self._dispatch_times: Dict[int, float] = {}
 
     def export_state(self) -> Dict[str, object]:
         """The stream state as plain numpy/Python values: the staged halo
@@ -153,6 +186,14 @@ class WindowDecoder:
     @property
     def window_bytes(self) -> int:
         return 2 * self.spec.window
+
+    def discard_pending(self) -> int:
+        """Drop the bytes fed since the last whole window; returns how many.
+        The stream then stands at a window boundary, where a checkpoint can
+        be taken; the caller feeds the dropped bytes again on resume."""
+        n = self._psize
+        self._pending = np.zeros(0, np.uint8)
+        return n
 
     @property
     def _pending(self) -> np.ndarray:
@@ -213,28 +254,13 @@ class WindowDecoder:
 
     def _complete_inflight(self, inflight) -> List[Tuple[int, Message]]:
         handle, meta = inflight
-        host = self._fetch(handle)
+        host = fetch(handle)
         if isinstance(meta, list):  # batched (decode_staged_batch)
-            return self._complete_batch(host, meta)
-        return self._complete_window(host, meta)
-
-    def _enqueue_fetch(self, buf: torch.Tensor):
-        """Start the device->host copy of a packed result buffer: into
-        pinned memory, non-blocking, with an event to wait on."""
-        if buf.device.type != "cuda":
-            return buf, None
-        host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
-        host.copy_(buf, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return host, event
-
-    @staticmethod
-    def _fetch(handle) -> np.ndarray:
-        host, event = handle
-        if event is not None:
-            event.synchronize()
-        return host.numpy()
+            out: List[Tuple[int, Message]] = []
+            for row, m in zip(host, meta):
+                out.extend(self.complete(row, m))
+            return out
+        return self.complete(host, meta)
 
     def _dispatch(self, inflight) -> List[Tuple[int, Message]]:
         """Make ``inflight`` the pending window; complete the previous one."""
@@ -258,10 +284,10 @@ class WindowDecoder:
         out: List[Tuple[int, Message]] = []
         for iq_full in staged:
             buf = decode_window_staged_packed(self.spec, iq_full, self._first)
-            meta = (iq_full, self._first, None, self._window_index)
+            meta = WindowMeta(iq_full, self._first, None, self._window_index)
             self._first = False
             self._window_index += 1
-            out.extend(self._dispatch((self._enqueue_fetch(buf), meta)))
+            out.extend(self._dispatch((enqueue_fetch(buf), meta)))
         if drain:
             out.extend(self.drain())
         return out
@@ -276,25 +302,14 @@ class WindowDecoder:
         firsts_host = [self._first] + [False] * (k - 1)
         packed = decode_windows_scan(self.spec, staged_batch, firsts_host)
         metas = [
-            (staged_batch, i, firsts_host[i], None, self._window_index + i)
+            WindowMeta(staged_batch[i], firsts_host[i], None, self._window_index + i)
             for i in range(k)
         ]
         self._first = False
         self._window_index += k
-        out = self._dispatch((self._enqueue_fetch(packed), metas))
+        out = self._dispatch((enqueue_fetch(packed), metas))
         if drain:
             out.extend(self.drain())
-        return out
-
-    def _complete_batch(self, host: np.ndarray, metas) -> List[Tuple[int, Message]]:
-        out: List[Tuple[int, Message]] = []
-        for i, meta in enumerate(metas):
-            staged_batch, k, first, valid_blocks, window_index = meta
-            out.extend(
-                self._complete_window(
-                    host[i], (staged_batch[k], first, valid_blocks, window_index)
-                )
-            )
         return out
 
     def decode_capture(
@@ -347,16 +362,24 @@ class WindowDecoder:
         else:
             staged_t = staged_t.clone()
         buf = decode_window_staged_packed(spec, staged_t, self._first)
-        meta = (staged_t, self._first, valid_blocks, self._window_index)
-        self._dispatch_times[self._window_index] = time.monotonic()
+        meta = WindowMeta(staged_t, self._first, valid_blocks, self._window_index,
+                          time.monotonic())
         self._carry = np.array(staged[w : w + hs], np.uint16, copy=True)
         self._first = False
         self._window_index += 1
-        return self._dispatch((self._enqueue_fetch(buf), meta))
+        return self._dispatch((enqueue_fetch(buf), meta))
 
-    def _complete_window(self, host: np.ndarray, meta) -> List[Tuple[int, Message]]:
-        staged, first, valid_blocks, window_index = meta
-        t0 = self._dispatch_times.pop(window_index, None)
+    def complete(self, host_row: np.ndarray, meta: WindowMeta) -> List[Tuple[int, Message]]:
+        """Parse one dispatched window's packed result buffer into its
+        messages: unpack, escalate an overflowed window (the high-capacity
+        program, then the exact host path), then the reference's per-block
+        order, filter and digest dedup against this decoder's block state.
+
+        ``host_row`` is the window's (P,) u8 packed buffer on the host;
+        windows must be completed in stream order. The streaming calls run
+        it one window late; the wideband decoder runs it for each channel of
+        a super-step."""
+        staged, first, valid_blocks, window_index, t0 = meta
         if t0 is not None:
             ms = (time.monotonic() - t0) * 1e3
             ex = self.metrics.extra
@@ -365,7 +388,7 @@ class WindowDecoder:
                 max(ms, ex.get("feed_to_emit_ms_max", 0.0)), 2
             )
         spec = self.spec
-        res = unpack_results(spec, host)
+        res = unpack_results(spec, host_row)
         if self._overflowed(res, spec):
             # Escalate: re-decode this window with a high-capacity variant;
             # the exact host path last.

@@ -189,6 +189,22 @@ class SampleRing:
             self._ring_len += self.block_bytes
         self._sim_block = max(self._sim_block, block)
 
+    def resume_at(self, block: int, history: Optional[np.ndarray] = None) -> None:
+        """Start the walk of a stream resumed at ``block`` in the state of
+        one that walked blocks [0, block), so Length continues as in an
+        uninterrupted run. ``history``, the stream bytes that end where
+        ``block`` starts, fills the ring's stored blocks for dumps."""
+        n = min(block, self.buffer_bytes // self.block_bytes + 1)
+        self._ring = list(range(block - n, block))
+        self._ring_len = n * self.block_bytes
+        self._next_fed = block
+        self._sim_block = block - 1
+        if self.dumper.active and history is not None:
+            for b in self._ring:
+                end = history.size - (block - 1 - b) * self.block_bytes
+                if end - self.block_bytes >= 0:
+                    self._store[b] = history[end - self.block_bytes : end].copy()
+
     @property
     def length(self) -> int:
         """sampleBuf.Len() for LogMessage.Length (main.go:247)."""

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..decoder.pipeline import WindowDecoder
+from ..decoder.pipeline import WindowDecoder, WindowMeta, enqueue_fetch, fetch
 from ..device import DeviceLike, resolve_device
 from ..ops.channelizer import ChannelizerSpec, channel_offsets_hz
 from ..ops.channelizer_fused import channelize_requantize_fused
@@ -176,6 +176,13 @@ class WidebandDecoder:
     def window_bytes(self) -> int:
         """Wideband bytes consumed per super-step."""
         return 2 * self.chspec.n_channels * self.spec.window
+
+    def discard_pending(self) -> int:
+        """Drop the wideband bytes fed since the last whole super-step;
+        returns how many (see :meth:`WindowDecoder.discard_pending`)."""
+        n = self._psize
+        self._pending = np.zeros(0, np.uint8)
+        return n
 
     @property
     def wideband_sample_rate(self) -> int:
@@ -332,25 +339,23 @@ class WidebandDecoder:
         packed, self._wb_hist, self._chan_tail, staged = _wideband_step(
             self.chspec, self.spec, self._wb_hist, u16, self._chan_tail, self._first
         )
-        meta = (staged, self._first, valid_blocks, self._window_index)
-        now = time.monotonic()
-        for c in self._chan:
-            c._dispatch_times[self._window_index] = now
+        meta = (staged, self._first, valid_blocks, self._window_index, time.monotonic())
         self._first = False
         self._window_index += 1
         out: List[Triple] = []
         if self._inflight is not None:
             prev, self._inflight = self._inflight, None
             out.extend(self._complete(prev))
-        self._inflight = (self._chan[0]._enqueue_fetch(packed), meta)
+        self._inflight = (enqueue_fetch(packed), meta)
         return out
 
     def _complete(self, inflight) -> List[Triple]:
-        handle, (staged, first, valid_blocks, window_index) = inflight
-        host = WindowDecoder._fetch(handle)  # ONE fetch for all channels
+        handle, (staged, first, valid_blocks, window_index, t0) = inflight
+        host = fetch(handle)  # ONE fetch for all channels
         out: List[Triple] = []
         for c, chan in enumerate(self._chan):
-            msgs = chan._complete_window(host[c], (staged[c], first, valid_blocks, window_index))
+            msgs = chan.complete(host[c], WindowMeta(staged[c], first, valid_blocks,
+                                                     window_index, t0))
             out.extend((c, b, m) for b, m in msgs)
         if self.cross_channel_dedup:
             out = self._xchan.filter(out, on_drop=self._count_ghost)

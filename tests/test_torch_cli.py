@@ -2,7 +2,7 @@
 the same output lines on the golden capture and on a four-channel wideband
 capture (``-channels=4``) with the time field masked, the committed golden
 encoder fixtures, and a clear exit 1 for the modes this port does not run
-yet."""
+yet (``-checkpoint`` runs: tests/test_torch_checkpoint.py)."""
 
 import contextlib
 import datetime
@@ -137,10 +137,8 @@ def test_encoder_matches_golden_fixture(proto, fmt):
 UNPORTED = [
     (["-mesh"], "multi-GPU"),
     (["-coordinator=127.0.0.1:9999"], "multi-host"),
-    (["-checkpoint=ckpt"], "checkpoint"),
     (["-ingest=native"], "native"),
     (["-channels=4", "-mesh"], "multi-GPU"),
-    (["-channels=4", "-checkpoint=ckpt"], "checkpoint"),
 ]
 
 

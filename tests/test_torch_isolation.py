@@ -21,6 +21,8 @@ import chip_smoke  # its main() runs only as a script
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
                 or m == "rtlamr_tpu" or m.startswith("rtlamr_tpu."))
+assert {"rtlamr_tpu_torch.decoder.checkpoint", "rtlamr_tpu_torch.ref.decoder",
+        "rtlamr_tpu_torch.utils.modes", "rtlamr_tpu_torch.data"} <= set(names)
 print(len(names), loaded)
 """
 

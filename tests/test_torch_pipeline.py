@@ -1,5 +1,5 @@
 """The port's streaming ``WindowDecoder`` (rtlamr_tpu_torch/decoder) against
-the JAX package's and the NumPy oracle: identical message streams on the
+the JAX package's and the port's copy of the NumPy oracle: identical message streams on the
 golden capture and on synthetic all-protocol captures fed in odd chunks,
 through overflow escalation, the batch path, and a stream handed over
 mid-capture from the JAX decoder to the port."""
@@ -13,12 +13,11 @@ import torch
 
 from rtlamr_tpu.decoder import WindowDecoder as JaxDecoder
 from rtlamr_tpu.protocols import new_parser as jax_parser
-from rtlamr_tpu.ref import ReferenceDecoder
 from rtlamr_tpu_torch.decoder import WindowDecoder
 from rtlamr_tpu_torch.ops.spec import staged_geometry
 from rtlamr_tpu_torch.protocols import new_parser as torch_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
-from rtlamr_tpu_torch.ref import synth
+from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
 
 # The suite runs in several worker processes at once; torch's default of one
 # intra-op thread per core in each of them oversubscribes the CPU.
@@ -59,7 +58,7 @@ def as_list(msgs):
 
 def oracle(names, iq, chip_length=72):
     dec = ReferenceDecoder(
-        [jax_parser(n, chip_length) for n in names], arithmetic="int"
+        [torch_parser(n, chip_length) for n in names], arithmetic="int"
     )
     return as_list(dec.decode_capture(iq))
 

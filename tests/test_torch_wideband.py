@@ -1,8 +1,8 @@
 """The port's wideband decoder (rtlamr_tpu_torch/parallel/wideband.py)
-against the JAX package's ``WidebandDecoder`` (backend jnp) and the NumPy
-oracle, on tests/test_wideband.py's capture recipe: four channels at chip
-length 8, 24-block windows, packets planted on distinct channels (one
-straddles a super-step boundary, one spans two)."""
+against the JAX package's ``WidebandDecoder`` (backend jnp) and the port's
+copy of the NumPy oracle, on tests/test_wideband.py's capture recipe: four
+channels at chip length 8, 24-block windows, packets planted on distinct
+channels (one straddles a super-step boundary, one spans two)."""
 
 import numpy as np
 import pytest
@@ -10,11 +10,10 @@ import torch
 
 from rtlamr_tpu.parallel.wideband import WidebandDecoder as JaxWideband
 from rtlamr_tpu.protocols import new_parser as jax_parser
-from rtlamr_tpu.ref import ReferenceDecoder
 from rtlamr_tpu_torch.ops.channelizer_fused import channelize_requantize_plain
 from rtlamr_tpu_torch.parallel import WidebandDecoder
 from rtlamr_tpu_torch.protocols import new_parser as torch_parser
-from rtlamr_tpu_torch.ref import synth
+from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
 
 # The suite runs in several worker processes at once; torch's default of one
 # intra-op thread per core in each of them oversubscribes the CPU.
@@ -109,7 +108,7 @@ def test_wideband_union_vs_oracle(capture):
     streams = port_channel_streams(dec, wb)
     want = []
     for c in range(N):
-        oracle = ReferenceDecoder([jax_parser(p, CHIP) for p in NAMES], arithmetic="int")
+        oracle = ReferenceDecoder([torch_parser(p, CHIP) for p in NAMES], arithmetic="int")
         want.extend((c, b, str(m)) for b, m in oracle.decode_capture(streams[c]))
     assert sorted(got) == sorted(want)
 
