@@ -50,7 +50,26 @@ a non-zero exit code and no result line:
             capture, run in worker processes during the wideband_cli and
             resume phases, equals the straight stream, and so every resumed
             one.
-9. k1       the decode-stencil kernel against its plain PyTorch version on
+9. native   the C++ transport (``rtlamr_tpu_torch/native``, built with g++
+            on first use; a failed build fails the phase): the decode
+            phase's capture through ``NativeFileSource.read_staged`` into a
+            ring of pinned ``torch.uint16`` buffers, each refilled once the
+            event after its copy to the card has completed, then
+            ``process_host_staged``: the feed path's 206 messages. Prints
+            host ms a window by part beside the feed path's. Then the CLI
+            with ``-ingest=native`` against ``-ingest=python`` on the golden
+            capture and on the decode phase's, and a live run: the capture
+            streamed by an in-process rtl_tcp server into a
+            ``NativeRtlTcpClient`` CLI run, equal to the file run, 0 bytes
+            dropped.
+10. mesh    the time-sharded ``MeshDecoder`` with 1, 2 and 4 shards on the
+            card over the decode phase's capture: the ``WindowDecoder``'s
+            stream; ``dryrun`` at 2 and 4 shards (each boundary packet
+            once); the CLI's ``-mesh`` (every card, and two shards on card
+            0) equal to the plain run, and ``-mesh -checkpoint`` with SIGINT
+            during a read, then resumed, equal to the straight run.
+            Prints K1's launches.
+11. k1      the decode-stencil kernel against its plain PyTorch version on
             the card, byte for byte (bits, q6, mask), at the throughput spec
             (all four ``-msgtype=all`` protocols, chip length 72, 1024
             blocks a window) on random, planted, all-zero and 0x8080
@@ -60,7 +79,7 @@ a non-zero exit code and no result line:
             and by torch.profiler's record of the kernel (L2 flushed before
             each launch), the plain version's, and the bound (bytes at the
             HBM rate against integer operations at the card's int32 rate).
-10. k2      the channelizer kernel against its plain PyTorch version on
+12. k2      the channelizer kernel against its plain PyTorch version on
             the card, byte for byte, at N = 1, 2, 3, 4, 5, 8, 12, 16, 31 and
             32 channels with 8 taps a branch and at N = 12 with 4 and 12,
             over a ragged frame count and fewer frames than one CTA's tile,
@@ -75,7 +94,7 @@ a non-zero exit code and no result line:
             reference's order), the runtime tap loop's time at the same
             shape (checked byte-equal too) beside the compiled-in taps', and
             what ``-Xptxas -v`` says about each instantiation.
-11. the kernels line, the card line, and the result line.
+13. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version do not count.
@@ -92,18 +111,23 @@ import multiprocessing
 import os
 import re
 import signal
+import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from rtlamr_tpu_torch import native
 from rtlamr_tpu_torch.cli.main import main as cli_main
 from rtlamr_tpu_torch.decoder import WindowDecoder
 from rtlamr_tpu_torch.decoder import pipeline as pipeline_mod
+from rtlamr_tpu_torch.decoder.pipeline import StagingRing
 from rtlamr_tpu_torch.decoder.checkpoint import (
     capture_checkpoint,
     load_checkpoint,
@@ -125,6 +149,7 @@ from rtlamr_tpu_torch.ops.spec import make_frontend_spec, staged_geometry
 from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
 from rtlamr_tpu_torch.parallel import WidebandDecoder
 from rtlamr_tpu_torch.parallel import wideband as wideband_mod
+from rtlamr_tpu_torch.parallel.mesh import MeshDecoder, dryrun
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
 from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
@@ -647,7 +672,7 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
          window_program_host_enqueue_ms=enqueue_ms,
          window_program_kernels=kernels, window_program_kernel_ms=busy_ms,
          window_program_top_kernels=top)
-    return msgs, launches
+    return msgs, launches, host_ms
 
 
 def phase_batch(iq: np.ndarray, want_msgs) -> int:
@@ -1029,62 +1054,69 @@ def start_oracle(pool, iq: np.ndarray, names, chip_length: int, parts: int):
 
 
 class SigintOnRead:
-    """Wraps ``FileSource.read`` of the CLI: raises SIGINT in the process on
-    the ``n``-th read (which still returns its bytes), as a user's Ctrl-C
-    during a decode; checks that the CLI took SIGINT over (only a flag,
-    read between feeds) before it does."""
+    """Wraps ``read`` of the CLI's file sources (the Python and the native
+    transport's): raises SIGINT in the process on the ``n``-th read (which
+    still returns its bytes), as a user's Ctrl-C during a decode; checks
+    that the CLI took SIGINT over (only a flag, read between feeds) before
+    it does."""
+
+    CLASSES = (capture_mod.FileSource, native.NativeFileSource)
 
     def __init__(self, n: int):
         self.n, self.calls = n, 0
-        self.orig = capture_mod.FileSource.read
+        self.origs = [cls.__dict__["read"] for cls in self.CLASSES]
 
     def __enter__(self):
         wrapper = self
 
-        def read(source, n_bytes):
-            wrapper.calls += 1
-            if wrapper.calls == wrapper.n:
-                check(signal.getsignal(signal.SIGINT) is not signal.default_int_handler,
-                      "resume cli: -checkpoint did not take SIGINT over")
-                signal.raise_signal(signal.SIGINT)
-            return wrapper.orig(source, n_bytes)
+        def wrap(orig):
+            def read(source, n_bytes):
+                wrapper.calls += 1
+                if wrapper.calls == wrapper.n:
+                    check(signal.getsignal(signal.SIGINT) is not signal.default_int_handler,
+                          "resume cli: -checkpoint did not take SIGINT over")
+                    signal.raise_signal(signal.SIGINT)
+                return orig(source, n_bytes)
+            return read
 
-        capture_mod.FileSource.read = read
+        for cls, orig in zip(self.CLASSES, self.origs):
+            cls.read = wrap(orig)
         return self
 
     def __exit__(self, *exc):
-        capture_mod.FileSource.read = self.orig
+        for cls, orig in zip(self.CLASSES, self.origs):
+            cls.read = orig
 
 
-def run_cli(argv):
-    """The in-process CLI: (exit code, JSON records without their Time,
-    stderr)."""
+def run_cli(argv, device=None):
+    """The in-process CLI (``device`` as ``main`` takes it): (exit code,
+    JSON records without their Time, stderr)."""
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = cli_main(argv)
+        rc = cli_main(argv, device=device)
     recs = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.strip()]
     for r in recs:
         r.pop("Time")
     return rc, recs, err.getvalue()
 
 
-def cli_resume(label: str, path: str, argv, interrupt_read: int) -> dict:
+def cli_resume(label: str, path: str, argv, interrupt_read: int, device=None) -> dict:
     """-checkpoint through the CLI on the capture at ``path``: a straight
     run (which must leave no checkpoint), a run interrupted by SIGINT during
     read ``interrupt_read``, then the resumed run; the two runs' records
-    must equal the straight run's."""
+    must equal the straight run's, which the result holds as ``records``."""
     ck = path + ".ck"
     argv = argv + ["-format=json", f"-fromfile={path}", f"-checkpoint={ck}"]
-    rc, want, _ = run_cli(argv)
+    rc, want, _ = run_cli(argv, device)
     check(rc == 0 and want, f"resume cli {label}: straight run rc {rc}, {len(want)} messages")
     check(not os.path.exists(ck + ".meta.json"), f"resume cli {label}: a run to EOF saved")
     with SigintOnRead(interrupt_read) as sig:
-        rc, head, err = run_cli(argv)
+        rc, head, err = run_cli(argv, device)
     check(rc == 0 and "interrupted" in err and sig.calls == interrupt_read,
           f"resume cli {label}: interrupted run rc {rc}, {sig.calls} reads: {err[-300:]}")
     saved = re.search(r"checkpoint saved at byte (\d+)", err)
     check(saved is not None, f"resume cli {label}: no checkpoint saved")
-    rc, tail, err = run_cli(argv)
+    rc, tail, err = run_cli(argv, device)
     skip = re.search(r"resumed from checkpoint at byte (\d+) \(read past in ([\d.]+) ms\)", err)
     check(rc == 0 and skip is not None and skip.group(1) == saved.group(1),
           f"resume cli {label}: resumed run rc {rc}: {err[-300:]}")
@@ -1092,7 +1124,8 @@ def cli_resume(label: str, path: str, argv, interrupt_read: int) -> dict:
           f"straight {len(want)}, or they differ")
     check(not os.path.exists(ck + ".meta.json"), f"resume cli {label}: checkpoint left at EOF")
     return {"messages": len(want), "before_interrupt": len(head),
-            "boundary": int(saved.group(1)), "skip_read_ms": float(skip.group(2))}
+            "boundary": int(saved.group(1)), "skip_read_ms": float(skip.group(2)),
+            "records": want}
 
 
 def phase_resume(card: str, iq: np.ndarray, nb_msgs, wide) -> tuple:
@@ -1179,9 +1212,266 @@ def phase_resume(card: str, iq: np.ndarray, nb_msgs, wide) -> tuple:
     k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
     check(k1 > 0 and k2 > 0, f"resume: launches k1 {k1}, k2 {k2}")
     emit("resume", card=card, cuts=cuts, save_ms=save_ms, load_restore_ms=load_restore_ms,
-         cli=cli, cli_skip_read_ms={k: v["skip_read_ms"] for k, v in cli.items()},
+         cli={k: {x: y for x, y in v.items() if x != "records"} for k, v in cli.items()},
+         cli_skip_read_ms={k: v["skip_read_ms"] for k, v in cli.items()},
          launches_k1=k1, launches_k2=k2, seconds=time.perf_counter() - t_phase)
     return k1, k2
+
+
+class RtlTcpServer(threading.Thread):
+    """An in-process rtl_tcp server on localhost: the 12-byte greeting, then
+    ``payload`` in 1 MiB sends, reading (and counting) the client's 5-byte
+    commands between them; then it half-closes, so the client reads to EOF,
+    and waits up to 60 s for the client to close."""
+
+    def __init__(self, payload: bytes):
+        super().__init__(daemon=True)
+        self.payload = payload
+        self.commands = 0
+        self.error = None
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.sock.settimeout(60)
+        self.port = self.sock.getsockname()[1]
+
+    def _count(self, data: bytes) -> bool:
+        self.commands += len(data) // 5
+        return bool(data)
+
+    def run(self):
+        try:
+            conn, _ = self.sock.accept()
+            with conn:
+                conn.settimeout(60)
+                conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+                view = memoryview(self.payload)
+                for pos in range(0, len(view), 1 << 20):
+                    conn.sendall(view[pos : pos + (1 << 20)])
+                    conn.setblocking(False)
+                    try:
+                        self._count(conn.recv(1 << 16))
+                    except BlockingIOError:
+                        pass
+                    conn.settimeout(60)
+                conn.shutdown(socket.SHUT_WR)
+                while self._count(conn.recv(1 << 16)):
+                    pass
+        except OSError as e:  # socket.timeout included
+            self.error = e
+        finally:
+            self.sock.close()
+
+
+def phase_native(card: str, iq: np.ndarray, planted: set, feed_msgs, feed_host_ms) -> int:
+    """The C++ transport: the reader loop (read_staged into pinned ring
+    buffers, process_host_staged) against the feed path; the CLI's
+    -ingest=native against -ingest=python; a live run through an rtl_tcp
+    server on localhost against the file run. Returns K1's launches in the
+    native transport's runs (the -ingest=python runs come before the count
+    is set to 0)."""
+    check(native.available(), f"native: the library did not build: {native.load_error()}")
+    t_phase = time.perf_counter()
+    want = [(b, str(m)) for b, m in feed_msgs]
+    dec = WindowDecoder([new_parser(n, 72) for n in ALL], window_blocks=1024, max_hits=256)
+    w = dec.spec.window
+    ring = StagingRing(dec)
+    check(all(b.is_pinned() for b in ring.buffers), "native: the ring's buffers are not pinned")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "throughput.bin")
+        iq.tofile(path)
+        cli_cases = (
+            ("golden", ["-msgtype=scm", "-symbollength=78", "-windowblocks=16",
+                        f"-fromfile={SAMPLE_BIN}"], len(SAMPLE_BIN_GOLDEN)),
+            ("throughput", ["-msgtype=all", "-symbollength=72", "-windowblocks=1024",
+                            f"-fromfile={path}"], len(planted)),
+        )
+
+        def cli_run(label, argv, mode):
+            rc, recs, err = run_cli(argv + ["-format=json", f"-ingest={mode}"])
+            check(rc == 0 and f"ingest: {mode}" in err,
+                  f"native cli {label} -ingest={mode}: rc {rc}: {err[-300:]}")
+            return recs
+
+        # The Python transport's runs, which the native ones must equal, come
+        # before the count is set to 0: it counts the native transport's runs.
+        python_recs = {label: cli_run(label, argv, "python") for label, argv, _ in cli_cases}
+        decode_stencil.launches = 0
+
+        def reader_loop():
+            dec.reset()
+            carry = np.zeros(dec.spec.halo_staged, np.uint16)
+            src = native.NativeFileSource(path)
+            msgs = []
+            try:
+                while True:
+                    buf = ring.acquire()
+                    got = src.read_staged(buf, carry, w)
+                    msgs += ring.submit(got)
+                    if got < w:
+                        break
+            finally:
+                src.close()
+            return msgs + dec.drain()
+
+        reader_loop()  # warm-up: allocator, page cache
+        torch.cuda.synchronize()
+        # The timed calls nest as in phase decode: process_host_staged >
+        # {h2d, the window program's enqueue, _dispatch > _complete_inflight >
+        # {fetch, _parse_window}, enqueue_fetch}; the last drain calls
+        # _complete_inflight outside _dispatch.
+        clock = HostClock()
+        clock.wrap(native.NativeFileSource, "read_staged")
+        clock.wrap(ring, "acquire")
+        for name in ("process_host_staged", "_dispatch", "_complete_inflight", "_parse_window"):
+            clock.wrap(dec, name)
+        for name in ("decode_window_staged_packed", "fetch", "enqueue_fetch"):
+            clock.wrap(pipeline_mod, name)
+        k0, w0 = decode_stencil.launches, dec.metrics.windows_decoded
+        t0 = time.perf_counter()
+        try:
+            msgs = reader_loop()
+        finally:
+            clock.restore()
+        elapsed = time.perf_counter() - t0
+        loop_launches = decode_stencil.launches - k0
+        s = clock.s
+        n_win = dec.metrics.windows_decoded - w0
+        host_ms = {k: v * 1e3 / n_win for k, v in {
+            "read_staged": s["read_staged"],
+            "wait_for_buffer": s["acquire"],
+            "h2d": (s["process_host_staged"] - s["decode_window_staged_packed"]
+                    - s["_dispatch"] - s["enqueue_fetch"]),
+            "enqueue_window_program": s["decode_window_staged_packed"],
+            "enqueue_d2h": s["enqueue_fetch"],
+            "wait_for_card": s["fetch"],
+            "parse": s["_parse_window"],
+            "unpack": s["_complete_inflight"] - s["fetch"] - s["_parse_window"],
+            "other": elapsed - s["read_staged"] - s["acquire"] - s["process_host_staged"]
+            - (s["_complete_inflight"] - s["_dispatch"]),
+        }.items()}
+        got = [(b, str(m)) for b, m in msgs]
+        check(got == want, f"native: the reader loop gives {len(got)} messages, the feed "
+              f"path {len(want)}, or they differ")
+        check({(m.msg_type(), m.meter_id()) for _, m in msgs} == planted,
+              "native: the reader loop's messages are not the planted set")
+        check(loop_launches == n_win, f"native: {loop_launches} K1 launches for {n_win} windows")
+
+        # The CLI: -ingest=native equals -ingest=python.
+        cli_runs = {}
+        for label, argv, n_want in cli_cases:
+            recs = cli_run(label, argv, "native")
+            check(len(recs) == n_want and recs == python_recs[label],
+                  f"native cli {label}: {len(recs)} native records, "
+                  f"{len(python_recs[label])} python, {n_want} expected, or they differ")
+            cli_runs[label] = len(recs)
+
+        # Live: the capture, zero-padded to whole CLI reads (a short last
+        # read is dropped at EOF, as the reference drops its partial block),
+        # streamed by a server on localhost into a NativeRtlTcpClient run.
+        chunk = 1 << 18  # the CLI's read at this configuration
+        padded = np.zeros(-(-iq.size // chunk) * chunk, np.uint8)
+        padded[: iq.size] = iq
+        padded_path = os.path.join(tmp, "padded.bin")
+        padded.tofile(padded_path)
+        argv = ["-msgtype=all", "-symbollength=72", "-windowblocks=1024", "-format=json",
+                "-ingest=native"]
+        rc, file_recs, _ = run_cli(argv + [f"-fromfile={padded_path}"])
+        check(rc == 0 and len(file_recs) == len(planted),
+              f"native live: the file run gave rc {rc}, {len(file_recs)} records")
+        server = RtlTcpServer(padded.tobytes())
+        server.start()
+        t_live = time.perf_counter()
+        try:
+            rc, live_recs, err = run_cli(argv + [f"-server=127.0.0.1:{server.port}", "-metrics"])
+        finally:
+            server.join(timeout=120)
+        live_s = time.perf_counter() - t_live
+        check(not server.is_alive() and server.error is None,
+              f"native live: the server did not end cleanly: {server.error}")
+        dropped = re.search(r"'bytes_dropped': (\d+)", err)
+        check(rc == 0 and live_recs == file_recs,
+              f"native live: rc {rc}, {len(live_recs)} records, the file run "
+              f"{len(file_recs)}, or they differ: {err[-300:]}")
+        check(dropped is not None and int(dropped.group(1)) == 0
+              and "ingest ring overflow" not in err,
+              f"native live: bytes were dropped: {err[-300:]}")
+    launches = decode_stencil.launches
+    check(launches > 0, "native: the decode stencil kernel was not launched")
+    copies = host_ms["read_staged"] + host_ms["wait_for_buffer"] + host_ms["h2d"]
+    feed_copies = feed_host_ms["feed_other"] + feed_host_ms["stage"] + feed_host_ms["h2d"]
+    emit("native", card=card, windows=n_win, messages=len(msgs), equal_to_feed=True,
+         samples_per_s=(iq.size // 2) / elapsed, seconds=elapsed,
+         host_ms_per_window=host_ms, feed_host_ms_per_window=feed_host_ms,
+         host_copy_ms_per_window=copies, feed_host_copy_ms_per_window=feed_copies,
+         cli_native_equals_python=cli_runs, live_records=len(live_recs),
+         live_bytes=padded.size, live_seconds=live_s, live_dropped=0,
+         live_commands=server.commands, launches=launches,
+         launches_reader_loop=loop_launches, phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
+    """The time-sharded MeshDecoder: 1, 2 and 4 shards on one card, and a
+    shard a card when there are several, equal the WindowDecoder's stream;
+    dryrun at 2 and 4 shards; the CLI's -mesh (every card, and two shards
+    on one) and -mesh -checkpoint (one shard). Returns K1's launches in the
+    mesh's runs (the plain CLI run comes before the count is set to 0)."""
+    t_phase = time.perf_counter()
+    want = [(b, str(m)) for b, m in feed_msgs]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cards = torch.cuda.device_count()
+    layouts = {str(n): [dev] * n for n in (1, 2, 4)}
+    if cards > 1:
+        layouts["every_card"] = [torch.device("cuda", i) for i in range(cards)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "throughput.bin")
+        iq.tofile(path)
+        args = ["-msgtype=all", "-symbollength=72", "-windowblocks=1024"]
+        argv = args + ["-format=json", f"-fromfile={path}"]
+        # The plain CLI run, which the -mesh runs must equal, comes before
+        # the count is set to 0: it counts the mesh's runs.
+        rc, plain, _ = run_cli(argv)
+        check(rc == 0 and len(plain) == len(want), f"mesh cli: plain run rc {rc}, {len(plain)}")
+        decode_stencil.launches = 0
+        shards, window = {}, None
+        for n, devices in layouts.items():
+            dec = MeshDecoder([new_parser(x, 72) for x in ALL], devices=devices,
+                              window_blocks=1024, max_hits=256)
+            k0 = decode_stencil.launches
+            t0 = time.perf_counter()
+            got = [(b, str(m)) for b, m in dec.decode_capture(iq)]
+            secs = time.perf_counter() - t0
+            check(got == want, f"mesh n={n}: {len(got)} messages, the WindowDecoder "
+                  f"{len(want)}, or they differ")
+            shards[n] = {"messages": len(got), "windows": dec.metrics.windows_decoded,
+                         "launches": decode_stencil.launches - k0, "seconds": secs}
+            # K1 runs on every window of a super-batch, valid or not.
+            dispatched = dec.export_state()["window_index"]
+            check(shards[n]["launches"] == dispatched,
+                  f"mesh n={n}: {shards[n]['launches']} launches for {dispatched} windows")
+            window = dec.spec.window
+            del dec
+        dry = {n: dryrun(n, device=dev) for n in (2, 4)}
+        check(dry == {2: 5, 4: 5}, f"mesh dryrun: {dry}")
+        cli_runs = {}
+        for label, device, n in (("every_card", None, cards), ("two_shards", [dev] * 2, 2)):
+            rc, recs, err = run_cli(argv + ["-mesh"], device=device)
+            check(rc == 0 and f"mesh: {n} devices" in err and recs == plain,
+                  f"mesh cli {label}: rc {rc}, {len(recs)} records, plain {len(plain)}: "
+                  f"{err[-300:]}")
+            cli_runs[label] = len(recs)
+        # One shard: SIGINT during the read that takes the stream half a
+        # window past the first super-batch (2 windows), so a checkpoint is
+        # saved at its end.
+        ckpt = cli_resume("mesh", path, args + ["-mesh"], (2 * 2 * window + window) // (1 << 18),
+                          device=[dev])
+        check(ckpt.pop("records") == plain, "mesh cli: the -checkpoint straight run differs")
+    launches = decode_stencil.launches
+    check(launches > 0, "mesh: the decode stencil kernel was not launched")
+    emit("mesh", card=card, shards=shards, dryrun=dry, cli=cli_runs, cli_checkpoint=ckpt,
+         launches=launches, seconds=time.perf_counter() - t_phase)
+    return launches
 
 
 def phase_wideband_cli():
@@ -1234,16 +1524,16 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
     n_windows = 4
     cfg = build_decoder_config([new_parser(n, 72) for n in ALL])
     spec = make_frontend_spec(cfg, 1024)
     iq, planted = build_capture(cfg, n_windows, spec.window, spec.halo)
+    phase_build()
     # The paths run first: after the kernel phases' torch.profiler sessions
     # the process launched the window program's kernels more slowly, which
     # showed in the paths' host and span times.
     cli_launches = phase_cli()
-    msgs, launches = phase_decode(card, iq, planted)
+    msgs, launches, feed_host_ms = phase_decode(card, iq, planted)
     batch_launches = phase_batch(iq, msgs)
     wide_k1, wide_k2, wide = phase_wideband(card)
     # The port's oracle over the throughput capture in worker processes
@@ -1266,6 +1556,9 @@ def main() -> int:
           f"straight stream (and so every resumed one) {len(want)}, or they differ")
     emit("resume_oracle", messages=len(rows), equal=True, workers=ORACLE_WORKERS,
          seconds=time.perf_counter() - t_oracle, waited_s=time.perf_counter() - t_wait)
+    # The native phase times host work, so it runs once the workers are done.
+    native_k1 = phase_native(card, iq, planted, msgs, feed_host_ms)
+    mesh_k1 = phase_mesh(card, iq, msgs)
     del msgs
     k1 = phase_k1(card, iq)
     del iq
@@ -1281,6 +1574,8 @@ def main() -> int:
         "launches_wideband": wide_k1,
         "launches_wideband_cli": wcli_k1,
         "launches_resume": resume_k1,
+        "launches_native": native_k1,
+        "launches_mesh": mesh_k1,
         "parity": "exact",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],

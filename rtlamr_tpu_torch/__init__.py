@@ -21,11 +21,14 @@ layer and imports nothing of the JAX package.
   plain PyTorch; ``ops/channelizer_fused.py`` the fused channelizer: the
   CUDA kernel ``csrc/channelizer.cu`` for CUDA tensors, its plain version
   for CPU tensors.
-- ``decoder/``         the streaming ``WindowDecoder``.
+- ``decoder/``         the streaming ``WindowDecoder`` and checkpoints.
 - ``parallel/``        the wideband ``WidebandDecoder`` (channelize, then one
-  window program per channel).
+  window program per channel) and the time-sharded ``MeshDecoder`` (one
+  process over a list of devices).
+- ``native/``          the C++ sample transport (rtl_tcp reader thread and
+  ring, mmapped files, ``read_staged``), built with g++ on first use.
 - ``cli/``             ``python -m rtlamr_tpu_torch``, narrowband and
-  ``-channels N`` wideband, one card.
+  ``-channels N`` wideband on one card, ``-mesh`` over every local card.
 
 Entry points run on the card (``device=None`` means ``cuda``) and raise when
 there is none; pass ``device="cpu"`` to run the plain versions on the CPU.

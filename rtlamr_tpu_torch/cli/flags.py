@@ -337,8 +337,8 @@ def build_flagset() -> FlagSet:
     fs.add(
         "ingest",
         "auto",
-        "sample transport: python, or auto (= python; the native C++ "
-        "transport is not ported yet, so native exits 1)",
+        "sample transport: native (C++ reader thread + ring buffer / mmap), "
+        "python, or auto (native when buildable)",
     )
     # rtl_tcp flags (contributed by the rtltcp package in the reference,
     # main.go:320)

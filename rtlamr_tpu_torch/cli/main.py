@@ -11,13 +11,18 @@ filtered, deduped messages. The decoder is the narrowband
 search on the card) or, with ``-channels`` > 1, the
 :class:`~rtlamr_tpu_torch.parallel.WidebandDecoder` (CUDA channelizer
 kernel, then the same window program for every channel), with
-``-crosschanneldedup``.
+``-crosschanneldedup``, or, with ``-mesh`` and one channel, the
+:class:`~rtlamr_tpu_torch.parallel.MeshDecoder` (the same windows
+time-sharded over every local card).
 
-``-checkpoint`` resumes and saves the stream position of both decoders
-(``decoder/checkpoint.py``). Not ported yet, and refused with exit code 1
-until their slice lands: ``-mesh`` (multi-GPU, also with ``-channels`` and
-with ``-checkpoint``), ``-coordinator`` (multi-host) and ``-ingest=native``
-(the C++ transport).
+``-ingest`` picks the sample transport: ``native`` the C++ transport
+(``native/``: mmapped capture files, an rtl_tcp reader thread and ring),
+``python`` the ``io/`` module, ``auto`` native when its library builds.
+Standard input is always read by Python. ``-checkpoint`` resumes and saves
+the stream position of every decoder here (``decoder/checkpoint.py``). Not
+ported yet, and refused with exit code 1 until their slice lands:
+``-channels`` with ``-mesh`` (multi-GPU wideband) and ``-coordinator``
+(multi-host).
 """
 
 from __future__ import annotations
@@ -28,11 +33,11 @@ import signal
 import sys
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 
-from .. import __version__
+from .. import __version__, native
 from ..decoder.checkpoint import (
     capture_checkpoint,
     checkpoint_exists,
@@ -51,6 +56,7 @@ from ..io.capture import (
     StdinSource,
 )
 from ..io.rtltcp import RtlTcpClient
+from ..parallel.mesh import MeshDecoder
 from ..parallel.wideband import WidebandDecoder
 from ..protocols import new_parser
 from .encoders import LogMessage, make_encoder
@@ -82,6 +88,13 @@ def build_filter_chain(fs: FlagSet) -> FilterChain:
     return fc
 
 
+#: where the modes this port does not run yet arrive
+UNPORTED_SLICE = "the multi-GPU wideband and multi-host slice"
+
+#: the -device argument of run(): one device, or for -mesh one device a shard
+Devices = Union[DeviceLike, Sequence[DeviceLike]]
+
+
 def _refuse_unported(fs: FlagSet) -> None:
     """Exit 1, naming the slice that brings it, for a mode this port does
     not run yet."""
@@ -89,28 +102,30 @@ def _refuse_unported(fs: FlagSet) -> None:
     if channels < 1:
         _log(f"invalid -channels value {channels} (want >= 1)")
         raise SystemExit(1)
-    mesh = ("-channels with -mesh (channel x time mesh)" if channels > 1
-            else "-mesh (time-sharded decode)")
+    mesh = "-channels with -mesh (channel x time mesh)"
     if fs.value("checkpoint"):
         mesh += " and its -checkpoint"
     unported = [
-        (fs.value("mesh"), mesh, "the multi-GPU slice"),
-        (bool(fs.value("coordinator")), "-coordinator (multi-host decode)",
-         "the multi-host slice"),
+        (fs.value("mesh") and channels > 1, mesh),
+        (bool(fs.value("coordinator")), "-coordinator (multi-host decode)"),
     ]
-    for active, what, slice_name in unported:
+    for active, what in unported:
         if active:
             _log(f"{what} is not ported to rtlamr_tpu_torch yet; "
-                 f"it arrives with {slice_name}")
+                 f"it arrives with {UNPORTED_SLICE}")
             raise SystemExit(1)
 
 
 class Receiver:
     """Receiver lifecycle (main.go:49-133) for live and offline sources."""
 
-    def __init__(self, fs: FlagSet, device: DeviceLike = None):
+    def __init__(self, fs: FlagSet, device: Devices = None):
         self.fs = fs
         _refuse_unported(fs)
+        ingest = fs.value("ingest")
+        if ingest not in ("auto", "native", "python"):
+            _log(f"invalid -ingest value {ingest!r} (want auto|native|python)")
+            raise SystemExit(1)
         chip_length = fs.value("symbollength")
         self.latency = fs.value("latency")
         if self.latency and not fs["windowblocks"].set_explicitly:
@@ -132,8 +147,10 @@ class Receiver:
                 raise SystemExit(1)
 
         self.fc = build_filter_chain(fs)
-        self._check_ingest()
         self.wideband = fs.value("channels") > 1
+        mesh = fs.value("mesh") and not self.wideband
+        if isinstance(device, (list, tuple)) and not mesh:
+            raise ValueError("a list of devices needs -mesh")
         if self.wideband:
             # One stream at channels*samplerate, channelized on the card
             # and decoded per channel (parallel/wideband.py).
@@ -146,6 +163,19 @@ class Receiver:
                 cross_channel_dedup=fs.value("crosschanneldedup"),
                 device=device,
             )
+        elif mesh:
+            # Time-sharded over every local card (one shard each), or over
+            # the caller's devices.
+            if device is not None and not isinstance(device, (list, tuple)):
+                device = [device]
+            self.decoder = MeshDecoder(
+                self.parsers,
+                devices=device,
+                window_blocks=fs.value("windowblocks"),
+                max_hits=fs.value("maxhits"),
+                filter_fn=self.fc.match,
+            )
+            _log(f"mesh: {self.decoder.n_devices} devices")
         else:
             self.decoder = WindowDecoder(
                 self.parsers,
@@ -155,7 +185,8 @@ class Receiver:
                 device=device,
             )
         self.cfg = self.decoder.cfg
-        self.client: Optional[RtlTcpClient] = None
+        #: the rtl_tcp client (either transport) of a live run
+        self.client = None
 
     def center_freq(self) -> int:
         """The capture's RF center (an explicit -centerfreq wins)."""
@@ -177,18 +208,17 @@ class Receiver:
         for c, f in enumerate(freqs):
             _log(f"  channel {c}: {f / 1e6:.6f} MHz")
 
-    def _check_ingest(self) -> None:
-        """Resolve -ingest: auto and python both mean the Python
-        transport; the native C++ transport is not ported yet."""
+    def _use_native(self) -> bool:
+        """Resolve -ingest (rtlamr_tpu/cli/main.py:175-190): ``python`` the
+        Python transport, ``native`` the C++ one (exit 1 when its library
+        does not build), ``auto`` native when it builds. Logs the choice."""
         mode = self.fs.value("ingest")
-        if mode not in ("auto", "native", "python"):
-            _log(f"invalid -ingest value {mode!r} (want auto|native|python)")
+        use = mode != "python" and native.available()
+        if mode == "native" and not use:
+            _log(f"native ingest unavailable: {native.load_error()}")
             raise SystemExit(1)
-        if mode == "native":
-            _log("-ingest=native is not ported to rtlamr_tpu_torch yet; "
-                 "it arrives with the native-transport slice "
-                 "(use -ingest=python or auto)")
-            raise SystemExit(1)
+        _log(f"ingest: {'native' if use else 'python'} (-ingest={mode})")
+        return use
 
     def open_source(self) -> IQSource:
         fs = self.fs
@@ -196,9 +226,14 @@ class Receiver:
         if fromfile:
             if fromfile == "-":
                 return StdinSource()
+            if self._use_native():
+                return native.NativeFileSource(fromfile)
             return FileSource(fromfile)
 
-        client = RtlTcpClient(fs.value("server"))
+        if self._use_native():
+            client = native.NativeRtlTcpClient(fs.value("server"))
+        else:
+            client = RtlTcpClient(fs.value("server"))
         info = client.connect()
         self.client = client
 
@@ -250,7 +285,7 @@ def _read_past(source: IQSource, n_bytes: int, keep: int):
     return done, tail
 
 
-def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
+def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     """Decode loop; messages go to ``out`` (``sys.stdout`` as it is at call
     time when None, so a caller's stdout redirection applies).
 
@@ -463,10 +498,12 @@ def run(fs: FlagSet, out=None, device: DeviceLike = None) -> int:
 
 
 def main(
-    argv: Optional[Sequence[str]] = None, device: DeviceLike = None
+    argv: Optional[Sequence[str]] = None, device: Devices = None
 ) -> int:
-    """The CLI. ``device=None`` runs on the card (``cuda``); tests pass
-    ``device="cpu"`` to run the plain PyTorch versions in-process."""
+    """The CLI. ``device=None`` runs on the card (``cuda``; with ``-mesh``
+    every local card, a shard each); tests pass ``device="cpu"`` to run the
+    plain PyTorch versions in-process, and for ``-mesh`` a list of devices
+    (``["cpu"] * 4``), a shard each."""
     fs = build_flagset()
     fs.parse(list(sys.argv[1:] if argv is None else argv))
     fs.env_override(log=_log)

@@ -9,6 +9,12 @@ restoring it continues the decode bit-identically.
 
 - :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`: kind ``"window"``, the
   ``(halo_staged,)`` u16 staged tail in ``path.carry.bin``.
+- :class:`~rtlamr_tpu_torch.parallel.MeshDecoder`: kind ``"window"`` with
+  the JAX mesh decoder's ``(halo,)`` carry, the last ``halo`` samples of the
+  stream (its staged tail without the ``pad_shift`` samples no stencil
+  reads), so either package's mesh decoder resumes it. A mesh checkpoint
+  into a single-device decoder, or the reverse, is refused as a geometry
+  mismatch, as the JAX package refuses it.
 - :class:`~rtlamr_tpu_torch.parallel.WidebandDecoder`: kind ``"wideband"``,
   ``path.carry.npz`` holding the channelizer history ``wb_hist`` as (2, N, P)
   f32 DC-removed frames (zeros at the stream head) and the per-channel
@@ -20,7 +26,8 @@ The files are the JAX package's, so a checkpoint written by either package
 resumes in the other. The meta (``path.meta.json``) adds two keys, which the
 JAX package does not read: ``carry_sha256``, the digest of the carry file,
 and ``window``, the decoder's window in samples; the port checks both when
-they are present. The JAX package's mesh and multi-host kinds are refused.
+they are present. The JAX package's wideband-mesh and multi-host
+checkpoints are refused.
 
 A save is atomic: each file is written under a temporary name in the same
 directory and moved into place with ``os.replace``, the carry first, then
@@ -45,11 +52,14 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import MeshDecoder
 from ..parallel.wideband import WidebandDecoder
 from .pipeline import WindowDecoder
 
-#: the JAX package's mesh and multi-host kinds: where they arrive in the port
-MULTI_GPU = "the mesh and multi-host checkpoint kinds arrive with the multi-GPU slices"
+#: the JAX package's wideband-mesh and multi-host checkpoints: where they
+#: arrive in the port
+MULTI_GPU = ("the wideband-mesh and multi-host checkpoints arrive with the multi-GPU "
+             "wideband and multi-host slice")
 
 
 def _ser_digests(digests) -> List[List]:
@@ -296,24 +306,25 @@ def capture_checkpoint(dec, byte_offset: int):
             window=dec.spec.window,
         )
     if isinstance(dec, WindowDecoder):
+        carry = state["carry"]
+        if isinstance(dec, MeshDecoder):
+            carry = carry[dec.spec.pad_shift :]  # the JAX mesh decoder's (halo,)
         return Checkpoint(
             byte_offset=byte_offset,
             window_index=state["window_index"],
             last_block=state["last_block"],
             first=state["first"],
-            carry=state["carry"],
+            carry=carry,
             prev_digests=[tuple(d) for d in state["dedup_prev"]],
             window=dec.spec.window,
         )
     raise TypeError(f"capture_checkpoint: no checkpoint kind for {type(dec).__name__}")
 
 
-def _geometry(what: str, got, want, halo_shape, hint: str) -> ValueError:
-    """The refusal of a carry of shape ``got`` where ``want`` is needed; a
-    carry of ``halo_shape`` is the tail of a JAX mesh decoder."""
-    why = f"a JAX mesh-decoder tail; {MULTI_GPU}" if got == halo_shape else hint
+def _geometry(what: str, got, want, hint: str) -> ValueError:
+    """The refusal of a carry of shape ``got`` where ``want`` is needed."""
     return ValueError(
-        f"checkpoint geometry mismatch: {what} has {got}, decoder wants {want} ({why})"
+        f"checkpoint geometry mismatch: {what} has {got}, decoder wants {want} ({hint})"
     )
 
 
@@ -336,9 +347,18 @@ def restore_checkpoint(dec, ckpt) -> None:
     hs, halo = dec.spec.halo_staged, dec.spec.halo
     if not wide:
         carry = np.asarray(ckpt.carry, np.uint16)
-        if carry.shape != (hs,):
-            raise _geometry("carry", carry.shape, (hs,), (halo,),
-                            "different message types?")
+        if isinstance(dec, MeshDecoder):
+            if carry.shape != (halo,):
+                hint = ("a single-device decoder's tail; resume it without -mesh"
+                        if carry.shape == (hs,) else "different message types?")
+                raise _geometry("carry", carry.shape, (halo,), hint)
+            # The pad_shift samples before the halo are read by no stencil.
+            carry = np.concatenate([np.zeros(hs - halo, np.uint16), carry])
+        elif carry.shape != (hs,):
+            hint = ("a mesh decoder's tail: resume it with -mesh, the multi-GPU "
+                    "time-sharded decoder"
+                    if carry.shape == (halo,) else "different message types?")
+            raise _geometry("carry", carry.shape, (hs,), hint)
         dec.load_state({
             "carry": carry,
             "first": ckpt.first,
@@ -352,8 +372,9 @@ def restore_checkpoint(dec, ckpt) -> None:
     n, p = dec.n_channels, dec.chspec.history_frames
     tail = np.asarray(ckpt.chan_tail)
     if tail.shape != (n, hs):
-        raise _geometry("chan_tail", tail.shape, (n, hs), (n, halo),
-                        "different -channels or message types?")
+        hint = (f"a JAX wideband-mesh decoder's tail; {MULTI_GPU}" if tail.shape == (n, halo)
+                else "different -channels or message types?")
+        raise _geometry("chan_tail", tail.shape, (n, hs), hint)
     if len(ckpt.chan_last_block) != n or len(ckpt.chan_prev_digests) != n:
         raise ValueError(
             f"checkpoint geometry mismatch: {len(ckpt.chan_last_block)} channel "

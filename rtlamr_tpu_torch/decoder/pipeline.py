@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,6 +84,58 @@ def fetch(handle) -> np.ndarray:
     if event is not None:
         event.synchronize()
     return host.numpy()
+
+
+class StagingRing:
+    """``depth`` host buffers of one staged window, filled in place by a
+    reader (the native transport's ``read_staged``) and dispatched by
+    :meth:`WindowDecoder.process_host_staged`.
+
+    On the card the buffers are pinned, so a window's copy to the card is
+    asynchronous and overlaps the next read; :meth:`acquire` hands a buffer
+    out again only once the copy that last read it has completed (its
+    :attr:`WindowDecoder.h2d_event`). Use::
+
+        buf = ring.acquire()
+        got = source.read_staged(buf, carry, spec.window)
+        msgs = ring.submit(got)
+    """
+
+    def __init__(self, dec: "WindowDecoder", depth: int = 3):
+        n = staged_geometry(dec.spec).staged_samples
+        pin = dec.device.type == "cuda"
+        self.dec = dec
+        self.buffers = [torch.zeros(n, dtype=torch.uint16, pin_memory=pin) for _ in range(depth)]
+        self._events: List[Optional[torch.cuda.Event]] = [None] * depth
+        self._i = 0
+
+    def acquire(self) -> torch.Tensor:
+        """The next buffer, once the copy to the card that last read it has
+        completed."""
+        event = self._events[self._i]
+        if event is not None:
+            event.synchronize()
+        return self.buffers[self._i]
+
+    def submit(self, samples: int) -> List[Tuple[int, Message]]:
+        """Dispatch the buffer :meth:`acquire` handed out, which holds
+        ``samples`` fresh samples; the previous window's messages. A short
+        read is decoded as :meth:`WindowDecoder.flush` decodes the stream's
+        tail: its whole blocks, with the rest of the window zeroed, and
+        nothing when it holds no whole block."""
+        spec, dec = self.dec.spec, self.dec
+        i = self._i
+        valid_blocks = None
+        if samples < spec.window:
+            valid_blocks = samples // spec.block_size
+            if valid_blocks == 0:
+                return []
+            hs = spec.halo_staged
+            self.buffers[i][hs + valid_blocks * spec.block_size : hs + spec.window] = 0
+        msgs = dec.process_host_staged(self.buffers[i], valid_blocks)
+        self._events[i] = dec.h2d_event
+        self._i = (i + 1) % len(self.buffers)
+        return msgs
 
 
 class WindowDecoder:
@@ -343,28 +395,48 @@ class WindowDecoder:
         staged[hs : hs + w] = np.ascontiguousarray(window_bytes).view(np.uint16)
         return self.process_host_staged(staged, valid_blocks)
 
+    #: the event recorded after the last :meth:`process_host_staged` copy to
+    #: the card (None on the CPU)
+    h2d_event: Optional[torch.cuda.Event] = None
+
     def process_host_staged(
-        self, staged: np.ndarray, valid_blocks: Optional[int] = None
+        self, staged: Union[np.ndarray, torch.Tensor], valid_blocks: Optional[int] = None
     ) -> List[Tuple[int, Message]]:
         """Dispatch one externally staged u16 window buffer.
 
         ``staged`` is a (staged_samples,) uint16 buffer in the
-        StagedGeometry layout with the carry already in place. It is copied
-        to the device before this returns, so the caller may reuse it.
-        self._carry is refreshed from the buffer.
+        StagedGeometry layout with the carry already in place: a numpy
+        array, or a contiguous CPU ``torch.uint16`` tensor such as the
+        native transport's ``read_staged`` fills (``native/``). From a
+        pinned tensor the copy to the card is asynchronous: the buffer may
+        be refilled only once :attr:`h2d_event`, recorded after the copy,
+        has completed (:class:`StagingRing` waits for it). From any other
+        buffer the copy has left it when this returns. self._carry is
+        refreshed from the buffer.
         """
         spec = self.spec
         hs, w = spec.halo_staged, spec.window
-        staged_t = torch.from_numpy(np.ascontiguousarray(staged, np.uint16))
-        if self.device.type == "cuda":
-            # From pageable memory the copy has left ``staged`` on return.
-            staged_t = staged_t.to(self.device, non_blocking=True)
+        if isinstance(staged, torch.Tensor):
+            if (staged.device.type != "cpu" or staged.dtype != torch.uint16
+                    or staged.dim() != 1 or not staged.is_contiguous()):
+                raise ValueError(
+                    "process_host_staged: want a contiguous 1-D CPU torch.uint16 "
+                    f"tensor, got {staged.dtype} {tuple(staged.shape)} on {staged.device}")
+            host = staged
         else:
-            staged_t = staged_t.clone()
+            host = torch.from_numpy(np.ascontiguousarray(staged, np.uint16))
+        if self.device.type == "cuda":
+            staged_t = host.to(self.device, non_blocking=True)
+            self.h2d_event = torch.cuda.Event()
+            self.h2d_event.record(torch.cuda.current_stream(self.device))
+        else:
+            staged_t = host.clone()
+            self.h2d_event = None
         buf = decode_window_staged_packed(spec, staged_t, self._first)
         meta = WindowMeta(staged_t, self._first, valid_blocks, self._window_index,
                           time.monotonic())
-        self._carry = np.array(staged[w : w + hs], np.uint16, copy=True)
+        # The device copy serves an escalation; the carry comes from the host.
+        self._carry = host[w : w + hs].numpy().copy()
         self._first = False
         self._window_index += 1
         return self._dispatch((enqueue_fetch(buf), meta))

@@ -1,3 +1,4 @@
+from .mesh import MeshDecoder
 from .wideband import CrossChannelDeduper, WidebandDecoder
 
-__all__ = ["CrossChannelDeduper", "WidebandDecoder"]
+__all__ = ["CrossChannelDeduper", "MeshDecoder", "WidebandDecoder"]

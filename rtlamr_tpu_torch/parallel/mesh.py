@@ -1,0 +1,253 @@
+"""Time-sharded decode over several devices, in one process.
+
+Port of the JAX package's ``parallel/mesh.py`` (``-mesh`` with one
+channel). A super-batch of ``n * K`` windows (``n`` devices, ``K =
+scan_windows``) is split along time: shard ``s`` decodes the contiguous
+windows ``[s*K, (s+1)*K)`` on ``devices[s]`` with
+:func:`~rtlamr_tpu_torch.ops.frontend.decode_windows_scan` (the decode
+stencil kernel once a window, then the search). Every shard's ``(K, P)``
+result rows are copied into one pinned ``(n, K, P)`` host buffer, waited for
+once, one super-batch late (dispatch-ahead), and parsed in global window
+order, so the reference's adjacent-block digest dedup (main.go:252-292)
+applies across shard boundaries unchanged.
+
+Halos: every window needs the ``halo`` samples before it. The JAX package
+stages each shard's first halo as zeros and fills it in the device program
+from the left neighbour by ``ppermute``, because on a multi-host mesh that
+neighbour's samples live on another host. Here one process holds every byte
+of the super-batch, so every window's halo is staged on the host, as the
+K-window batch stages them, and the carry between super-batches is the
+stream tail on the host, as in :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`.
+A device-to-device exchange comes with the multi-host decoder. So each
+window's staged buffer is the one ``WindowDecoder`` would build, the
+messages are the same, and an overflowed window is escalated with its full
+halo from its device copy.
+
+A device may repeat in ``devices`` (``["cpu"] * 4``, ``["cuda:0"] * 2``):
+its shards then run one after another on it.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..decoder.pipeline import FilterFn, WindowDecoder, WindowMeta
+from ..device import DeviceLike, resolve_device
+from ..ops.frontend import decode_windows_scan, packed_size
+from ..ops.spec import FrontendSpec, staged_geometry
+from ..protocols.base import Message, Parser
+
+
+def stage_superbatch(
+    spec: FrontendSpec, iq_bytes: np.ndarray, n: int, k: int, carry: np.ndarray,
+    out: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Stage ``n*k`` windows of raw interleaved IQ behind ``carry``, the
+    (halo_staged,) u16 stream tail before them, into (n, k, staged_samples)
+    u16 (into ``out`` when given): window ``j`` holds the stream samples
+    ``[j*W - halo_staged, (j+1)*W)`` at ``[0, halo_staged + W)``, zeros
+    past them."""
+    w, hs = spec.window, spec.halo_staged
+    size = staged_geometry(spec).staged_samples
+    u16 = np.ascontiguousarray(iq_bytes, np.uint8).view(np.uint16)
+    if u16.size != n * k * w or carry.shape != (hs,):
+        raise ValueError(f"stage_superbatch: {u16.size} samples and a carry of "
+                         f"{carry.shape}, want {n * k * w} and ({hs},)")
+    sb = np.empty((n, k, size), np.uint16) if out is None else out
+    flat = sb.reshape(n * k, size)
+    flat[:, hs + w :] = 0
+    flat[:, hs : hs + w] = u16.reshape(n * k, w)
+    for j in range(n * k):
+        # stream sample x < 0 is carry[x + hs]
+        neg = max(hs - j * w, 0)
+        flat[j, :neg] = carry[hs - neg :]
+        flat[j, neg:hs] = u16[j * w - hs + neg : j * w]
+    return sb
+
+
+class _Events(list):
+    """The copy events of a super-batch's fetch, one a device, waited for as
+    one (``pipeline.fetch`` calls ``synchronize``)."""
+
+    def synchronize(self) -> None:
+        for event in self:
+            event.synchronize()
+
+
+class MeshDecoder(WindowDecoder):
+    """Time-sharded decoder over ``n`` devices (module docstring).
+
+    Decode semantics (message sets, block indices, dedup) are those of
+    :class:`WindowDecoder`; each :meth:`feed` step decodes ``n *
+    scan_windows`` windows.
+
+    Args:
+      devices: one device a shard; ``None`` means every visible card, and
+        raises when there is none (the decoder never moves to the CPU on
+        its own; pass ``["cpu"] * n`` for the plain versions). A device may
+        repeat.
+      scan_windows: windows a shard decodes each step (K).
+      The other arguments are :class:`WindowDecoder`'s.
+    """
+
+    def __init__(
+        self,
+        parsers: Sequence[Parser],
+        devices: Optional[Sequence[DeviceLike]] = None,
+        window_blocks: Optional[int] = 64,
+        max_hits: int = 256,
+        filter_fn: Optional[FilterFn] = None,
+        backend: str = "jnp",
+        scan_windows: int = 2,
+    ):
+        if devices is None:
+            resolve_device(None)  # raises without a card
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        self.devices = [_indexed(resolve_device(d)) for d in devices]
+        if not self.devices or len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"MeshDecoder: want one or more devices of one type, got {devices}")
+        if scan_windows < 1:
+            raise ValueError(f"MeshDecoder: scan_windows {scan_windows} < 1")
+        self.n_devices = len(self.devices)
+        self.scan_windows = scan_windows
+        super().__init__(parsers, window_blocks=window_blocks, max_hits=max_hits,
+                         filter_fn=filter_fn, backend=backend, device=self.devices[0])
+        if self.spec.window < self.spec.halo:
+            raise ValueError(
+                "per-shard window must cover the halo: need window_blocks >= "
+                f"{-(-self.spec.halo // self.spec.block_size)} "
+                f"(window {self.spec.window} < halo {self.spec.halo})"
+            )
+
+    @property
+    def window_bytes(self) -> int:  # feed() granularity: one super-batch
+        return 2 * self.spec.window * self.n_devices * self.scan_windows
+
+    def _process_window(
+        self, super_bytes: np.ndarray, valid_blocks: Optional[int] = None
+    ) -> List[Tuple[int, Message]]:
+        """Stage one super-batch, copy each shard's windows to its device
+        and enqueue their programs and the one fetch; complete the previous
+        super-batch. ``valid_blocks`` counts the blocks of a partial last
+        super-batch, over all its windows."""
+        spec = self.spec
+        n, k = self.n_devices, self.scan_windows
+        w, hs = spec.window, spec.halo_staged
+        cuda = self.device.type == "cuda"
+        t0 = time.monotonic()
+        size = staged_geometry(spec).staged_samples
+        sb_t = torch.empty((n, k, size), dtype=torch.uint16, pin_memory=cuda)
+        sb = stage_superbatch(spec, super_bytes, n, k, self._carry, out=sb_t.numpy())
+        self._carry = sb[n - 1, k - 1, w : w + hs].copy()
+
+        host = torch.empty((n, k, packed_size(spec)), dtype=torch.uint8, pin_memory=cuda)
+        batches = []
+        for s, dev in enumerate(self.devices):
+            # A fresh pinned buffer a super-batch: the host allocator reuses
+            # it only once the copies that read it have completed. On the
+            # CPU each shard decodes its rows of it in place.
+            batch = sb_t[s].to(dev, non_blocking=True) if cuda else sb_t[s]
+            firsts = [self._first and s == 0 and kk == 0 for kk in range(k)]
+            host[s].copy_(decode_windows_scan(spec, batch, firsts), non_blocking=cuda)
+            batches.append(batch)
+        events = _Events()
+        if cuda:
+            for dev in dict.fromkeys(self.devices):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
+
+        wb = w // spec.block_size
+        total = n * k * wb if valid_blocks is None else valid_blocks
+        metas = []
+        for win in range(n * k):
+            win_valid = min(max(total - win * wb, 0), wb)
+            if win_valid == 0:
+                break  # the valid windows are a prefix
+            s, kk = divmod(win, k)
+            metas.append(WindowMeta(
+                batches[s][kk], self._first and win == 0,
+                win_valid if win_valid < wb else None, self._window_index + win, t0,
+            ))
+        self._window_index += n * k
+        self._first = False
+        # Rows in global window order; rows past the last valid window are
+        # not completed.
+        return self._dispatch(((host.view(n * k, -1), events if cuda else None), metas))
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current index>``, so equal cards compare equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def dryrun(n_devices: int, window_blocks: Optional[int] = None,
+           device: DeviceLike = None) -> int:
+    """Decode, with ``n_devices`` shards on ``device`` (``None``: the card),
+    a noisy all-protocol capture with packets planted inside shards, exactly
+    on the first shard boundary and on the super-batch boundary; check that
+    each boundary packet decodes exactly once and that the (block, message)
+    stream equals the NumPy oracle's. Returns the number of messages."""
+    from ..protocols import new_parser
+    from ..ref import ReferenceDecoder, synth
+
+    chip_length = 8  # smallest supported => tiniest shapes (flags.go:127)
+    names = ("scm", "idm", "r900")
+    parsers = [new_parser(n, chip_length) for n in names]
+    dec = MeshDecoder(
+        parsers,
+        devices=[device] * n_devices,
+        window_blocks=window_blocks,
+        max_hits=32,
+    )
+    cfg = dec.cfg
+    w = dec.spec.window
+    k = dec.scan_windows
+    shard_span = k * w  # samples per shard's contiguous run
+    super_span = n_devices * shard_span
+    scm_packet_len = 96 * cfg.symbol_length
+
+    # Non-overlapping burst offsets (IDM is 736 symbols long):
+    sl = cfg.symbol_length
+    o_scm = cfg.block_size // 4
+    o_idm = o_scm + 96 * sl + 2 * sl
+    o_r900 = o_idm + 736 * sl + 2 * sl
+    bursts = [
+        synth.bits_to_burst(synth.make_scm_bits(meter_id=123456, consumption=42), o_scm),
+        synth.bits_to_burst(synth.make_idm_bits(serial=777777), o_idm),
+        synth.r900_burst(synth.make_r900_symbols(meter_id=424242), o_r900),
+    ]
+    expected = [123456, 424242, 777777]
+    if n_devices > 1:
+        # Exactly on the first shard boundary: found once and once only
+        # (halo staging + digest dedup).
+        bursts.append(synth.bits_to_burst(
+            synth.make_scm_bits(meter_id=654321, consumption=7),
+            shard_span - scm_packet_len // 2))
+        expected.append(654321)
+    # Straddling the super-batch boundary: exercises the carry.
+    bursts.append(synth.bits_to_burst(
+        synth.make_scm_bits(meter_id=13579, consumption=9), super_span - scm_packet_len // 2))
+    expected.append(13579)
+    iq = synth.render_iq(2 * super_span, bursts, chip_length, noise=2.0, seed=31)
+
+    msgs = dec.decode_capture(iq)
+    ids = sorted(m.meter_id() for _, m in msgs)
+    if ids != sorted(expected):
+        raise AssertionError(f"mesh dryrun decoded {ids}, expected {sorted(expected)}")
+
+    # Full conformance: identical (block, message) stream to the oracle.
+    oracle = ReferenceDecoder(
+        [new_parser(n, chip_length) for n in names], arithmetic="int"
+    ).decode_capture(iq)
+    got = [(b, str(m)) for b, m in msgs]
+    want = [(b, str(m)) for b, m in oracle]
+    if got != want:
+        raise AssertionError(f"mesh dryrun diverged from the oracle:\n{got}\n{want}")
+    return len(msgs)

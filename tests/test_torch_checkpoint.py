@@ -489,13 +489,14 @@ def test_cli_interrupt_resume(fmt, tmp_path, monkeypatch):
             return orig_read(self, 100000)
         raise KeyboardInterrupt
 
+    argv = golden_argv(SAMPLE, path, fmt) + ["-ingest=python"]  # the test patches FileSource
     with monkeypatch.context() as mp:
         mp.setattr(FileSource, "read", flaky_read)
-        rc, got = cli(golden_argv(SAMPLE, path, fmt))
+        rc, got = cli(argv)
     assert rc == 0 and os.path.exists(path + ".meta.json")
     assert load_checkpoint(path).byte_offset == 65536
     assert 0 < len(got) < 14
-    rc, rest = cli(golden_argv(SAMPLE, path, fmt))
+    rc, rest = cli(argv)
     assert rc == 0 and got + rest == want
     assert not os.path.exists(path + ".meta.json")
 
@@ -558,7 +559,8 @@ def test_cli_wideband_interrupt_resume(wide, tmp_path, monkeypatch):
     cap = tmp_path / "wb.bin"
     wide[0].tofile(cap)
     argv = ["-msgtype=scm,idm,r900", "-symbollength=8", "-channels=4", "-windowblocks=24",
-            "-format=json", f"-fromfile={cap}", f"-checkpoint={tmp_path / 'ck'}"]
+            "-format=json", f"-fromfile={cap}", f"-checkpoint={tmp_path / 'ck'}",
+            "-ingest=python"]  # the test patches FileSource
     _, want = cli(argv)
     assert len(want) >= 3
     orig_read = FileSource.read
@@ -594,7 +596,7 @@ def test_cli_refuses_bad_checkpoints(tmp_path, capsys):
     assert "kind mismatch" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("extra", [[], ["-channels=4"]])
+@pytest.mark.parametrize("extra", [["-channels=4"]])
 def test_cli_checkpoint_with_mesh_exits_1(extra, capsys):
     with pytest.raises(SystemExit) as exc:
         main(["-msgtype=scm", "-symbollength=78", f"-fromfile={SAMPLE}", "-mesh",

@@ -2,7 +2,8 @@
 the same output lines on the golden capture and on a four-channel wideband
 capture (``-channels=4``) with the time field masked, the committed golden
 encoder fixtures, and a clear exit 1 for the modes this port does not run
-yet (``-checkpoint`` runs: tests/test_torch_checkpoint.py)."""
+yet (``-checkpoint`` runs: tests/test_torch_checkpoint.py; ``-ingest`` and
+``-mesh``: tests/test_torch_native.py and tests/test_torch_mesh.py)."""
 
 import contextlib
 import datetime
@@ -135,9 +136,7 @@ def test_encoder_matches_golden_fixture(proto, fmt):
 
 
 UNPORTED = [
-    (["-mesh"], "multi-GPU"),
     (["-coordinator=127.0.0.1:9999"], "multi-host"),
-    (["-ingest=native"], "native"),
     (["-channels=4", "-mesh"], "multi-GPU"),
 ]
 
