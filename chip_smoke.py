@@ -69,7 +69,25 @@ a non-zero exit code and no result line:
             0) equal to the plain run, and ``-mesh -checkpoint`` with SIGINT
             during a read, then resumed, equal to the straight run.
             Prints K1's launches.
-11. k1      the decode-stencil kernel against its plain PyTorch version on
+11. wide_mesh  the channel x time ``WidebandMeshDecoder`` at full width on
+            the wideband phase's capture: mesh (2, 2), one window a time
+            shard, its four shards on the card (K2 launched once a shard a
+            super-batch, for the shard's block of six channel rows), equal
+            to the wideband phase's stream (127 packets); prints K1's and
+            K2's launches, host ms a super-batch by part and wideband
+            samples/s, the layout's cost on one card. Then the CLI's
+            -channels=12 -mesh on every card and, with -checkpoint, on two
+            devices of the card (SIGINT during a read, then the resumed
+            run), equal to the plain -channels=12 run.
+12. multihost  ``python -m rtlamr_tpu_torch -coordinator`` in two processes
+            on the card (gloo over localhost) on the decode phase's capture
+            written to a file, with -checkpoint: a run interrupted by
+            SIGINT and its resumed run, whose records together partition
+            the plain CLI's, at Offset = block x block bytes, each process
+            in window order; K1 launched once a dispatched window and once
+            an escalation. Prints the halo ring's and the seam dedup's host
+            ms a super-batch and K1's launches per process.
+13. k1      the decode-stencil kernel against its plain PyTorch version on
             the card, byte for byte (bits, q6, mask), at the throughput spec
             (all four ``-msgtype=all`` protocols, chip length 72, 1024
             blocks a window) on random, planted, all-zero and 0x8080
@@ -79,13 +97,15 @@ a non-zero exit code and no result line:
             and by torch.profiler's record of the kernel (L2 flushed before
             each launch), the plain version's, and the bound (bytes at the
             HBM rate against integer operations at the card's int32 rate).
-12. k2      the channelizer kernel against its plain PyTorch version on
+14. k2      the channelizer kernel against its plain PyTorch version on
             the card, byte for byte, at N = 1, 2, 3, 4, 5, 8, 12, 16, 31 and
             32 channels with 8 taps a branch and at N = 12 with 4 and 12,
             over a ragged frame count and fewer frames than one CTA's tile,
             with the stream head's zero history, a carried history and a
             chunk that starts off 16-byte alignment, into a fresh tensor and
-            into rows at an odd column; then at full width (N = 12,
+            into rows at an odd column; the channel blocks phase wide_mesh
+            launches (rows 0-5 and 6-11 of 12) equal to the same rows of the
+            full launch and to the plain block; then at full width (N = 12,
             8,388,608 frames, into the staged batch) its time (CUDA events
             around the wrapper and torch.profiler's record of the kernel, L2
             flushed before each launch), the plain version's, the bound
@@ -94,7 +114,7 @@ a non-zero exit code and no result line:
             reference's order), the runtime tap loop's time at the same
             shape (checked byte-equal too) beside the compiled-in taps', and
             what ``-Xptxas -v`` says about each instantiation.
-13. the kernels line, the card line, and the result line.
+15. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version do not count.
@@ -102,6 +122,7 @@ after; launches made to compare a kernel with its plain version do not count.
 
 from __future__ import annotations
 
+import ast
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -147,8 +168,9 @@ from rtlamr_tpu_torch.ops.channelizer_mix import mix_op_count
 from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed
 from rtlamr_tpu_torch.ops.spec import make_frontend_spec, staged_geometry
 from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
-from rtlamr_tpu_torch.parallel import WidebandDecoder
+from rtlamr_tpu_torch.parallel import WidebandDecoder, WidebandMeshDecoder
 from rtlamr_tpu_torch.parallel import wideband as wideband_mod
+from rtlamr_tpu_torch.parallel import wideband_mesh as wideband_mesh_mod
 from rtlamr_tpu_torch.parallel.mesh import MeshDecoder, dryrun
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
@@ -459,9 +481,11 @@ def ptxas_lines(name: str):
 def phase_build():
     t0 = time.perf_counter()
     # the channelizer's libraries: each (N, tap class) that phase k2 launches,
-    # which covers the wideband paths' N = 12 and 4 at 8 taps
+    # which covers the wideband paths' N = 12 and 4 at 8 taps, and the
+    # channel blocks of phase wide_mesh
     libs = list(build.build_many(["decode_stencil"] + list(dict.fromkeys(
-        kernel_library(n, p == FIXED_TAPS) for n, p in K2_CASES))))  # one nvcc each, together
+        kernel_library(n, p == FIXED_TAPS) for n, p in K2_CASES)) + [
+        kernel_library(n, True, c0, rows) for n, c0, rows in K2_BLOCKS]))  # one nvcc each, together
     secs = time.perf_counter() - t0
     emit("build", kernels=list(KERNELS), seconds=round(secs, 3),
          nvcc_seconds={k: round(float(build.BUILD_LOG[k]["seconds"]), 3) for k in libs},
@@ -696,9 +720,11 @@ def phase_batch(iq: np.ndarray, want_msgs) -> int:
     return launches
 
 
-def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float) -> dict:
+def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float, c0: int = 0,
+                     rows: int = 0) -> dict:
     """What the channelizer function needs on this input: bytes (the chunk
-    and the history read once, the N channel rows written once) at
+    and the history read once, the C channel rows written once; C = N, or
+    the ``rows`` of a channel block from ``c0``) at
     HBM_BYTES_PER_S, and instructions at ``rate``, none fused, each part
     counted in its cheapest exact form. A frame takes 4 N P - 2 N for the
     branches (a product and a sum a tap and component, each chain starting
@@ -712,12 +738,14 @@ def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float) -> dict:
     Leaving out a ``0 +`` or a product by 0 changes only a zero's sign, which
     the requantize cannot see. In the reference's order the branches take 4
     N P and the mix 8 N^2. The bound is the larger of the bytes' time and the
-    cheapest count's."""
+    cheapest count's. A block runs every branch and DC removal, and the mix
+    (8 N C in the reference's order) and the requantize of its C rows."""
     n, p = spec.n_channels, spec.taps_per_branch
-    n_bytes = 2 * n * frames + 2 * n * p + 2 * n * frames
-    muls, adds = mix_op_count(n)
-    ops = frames * (4 * n * p - 2 * n + 15 * n + muls + adds)
-    ops_ref = frames * (4 * n * p + 15 * n + 8 * n * n)
+    c = rows or n
+    n_bytes = 2 * n * frames + 2 * n * p + 2 * c * frames
+    muls, adds = mix_op_count(n, c0, c)
+    ops = frames * (4 * n * p - 2 * n + 6 * n + 9 * c + muls + adds)
+    ops_ref = frames * (4 * n * p + 6 * n + 9 * c + 8 * n * c)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops, t_ref = ops / rate * 1e3, ops_ref / rate * 1e3
     return {"bytes": n_bytes, "bytes_ms": t_bytes, "f32_instr": ops, "f32_instr_ms": t_ops,
@@ -729,22 +757,27 @@ def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float) -> dict:
 def ptxas_by_entry(name: str) -> dict:
     """What ``-Xptxas -v`` said of each kernel entry of ``csrc/<name>.cu``
     over the libraries it is built as:
-    {entry: [registers, spill stores, spill loads]}, the entries of a
-    template named by their integer arguments (``N12P8`` for
-    ``channelize_kernel<12, 8>``)."""
-    out, entry = {}, None
-    logs = [str(v["log"]) for k, v in build.BUILD_LOG.items() if k.partition(".")[0] == name]
-    for ln in "\n".join(logs).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            args = re.findall(r"Li(\d+)E", m.group(1))
-            entry = "N{}P{}".format(*args) if len(args) == 2 else m.group(1)
-            out[entry] = [None, None, None]
-        elif entry and "spill stores" in ln:
-            st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-            out[entry][1:] = [int(st.group(1)), int(st.group(2))]
-        elif entry and "registers" in ln:
-            out[entry][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    {entry: [registers, spill stores, spill loads]}, an entry of a library
+    named for its instantiation by that name (``N12P8`` for
+    ``channelizer.n12p8``, all 12 rows, and ``N12C6x6P8`` for
+    ``channelizer.n12c6x6p8``, the block of rows 6 to 11)."""
+    out = {}
+    for lib, v in build.BUILD_LOG.items():
+        if lib.partition(".")[0] != name:
+            continue
+        m = re.fullmatch(r"n(\d+)(?:c(\d+)x(\d+))?p(\d+)", lib.partition(".")[2])
+        label = (f"N{m[1]}P{m[4]}" if m[2] is None else f"N{m[1]}C{m[2]}x{m[3]}P{m[4]}") if m else None
+        entry = None
+        for ln in str(v["log"]).splitlines():
+            e = re.search(r"Compiling entry function '(\w+)'", ln)
+            if e:
+                entry = label or e.group(1)
+                out[entry] = [None, None, None]
+            elif entry and "spill stores" in ln:
+                st = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+                out[entry][1:] = [int(st.group(1)), int(st.group(2))]
+            elif entry and "registers" in ln:
+                out[entry][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
     return out
 
 
@@ -763,6 +796,13 @@ def random_u16(rng, n_elems: int, dev) -> torch.Tensor:
 #: (N, P) of the k2 parity phase: every compiled-in N class at P = 8 and
 #: the runtime tap loop at P = 4 and 12
 K2_CASES = [(n, 8) for n in (1, 2, 3, 4, 5, 8, 12, 16, 31, 32)] + [(12, 4), (12, 12)]
+#: the wide_mesh phase's layout: (channel shards, time shards) of the
+#: 12-channel decoder, its windows a time shard, and its channel blocks
+#: (N, c0, rows), the K2 instantiations it launches besides the full one;
+#: its CLI runs take two cards' devices, which the CLI lays out as (2, 1)
+WIDE_MESH, WIDE_MESH_SCAN, WIDE_MESH_CLI_DEVICES = (2, 2), 1, 2
+K2_BLOCKS = [(WIDE_CHANNELS, c0, WIDE_CHANNELS // WIDE_MESH[0])
+             for c0 in range(0, WIDE_CHANNELS, WIDE_CHANNELS // WIDE_MESH[0])]
 
 
 def phase_k2(card: str):
@@ -800,6 +840,37 @@ def phase_k2(card: str):
                       f"k2 N={n} P={p} F={f} {label}: strided output differs or overruns")
         emit("k2_parity", n=n, p=p, frames=[3 * 8192 + 640 + 37, 37],
              histories=["head", "carried", "misaligned"], exact=True)
+
+    # The channel blocks the wideband mesh launches: byte-equal to the same
+    # rows of the full launch and to the plain version of the block, at the
+    # mesh's shape (one time shard's frames, into a staged row buffer at
+    # the halo's offset) and at a ragged one.
+    for n, c0, rows in K2_BLOCKS:
+        spec = ChannelizerSpec(n_channels=n)
+        p = spec.history_frames
+        rng = np.random.default_rng(200 + c0)
+        for f in (8 * 1024 * 1024, 3 * 8192 + 640 + 37):
+            chunk, hist = random_u16(rng, n * f, dev), random_u16(rng, n * p, dev)
+            for first in (True, False):
+                full = channelize_requantize_fused(spec, hist, chunk, first)
+                want = channelize_requantize_plain(spec, hist, chunk, first, c0, rows)
+                buf = torch.zeros((rows, f + 106496 + 64), dtype=torch.uint16, device=dev)
+                got = channelize_requantize_fused(spec, hist, chunk, first,
+                                                  out=buf[:, 106496 : 106496 + f],
+                                                  channel_start=c0, channel_count=rows)
+                torch.cuda.synchronize()
+                differ, err = u16_diff(got, want)
+                max_err = max(max_err, err)
+                check(differ == 0 and torch.equal(got.view(torch.int16),
+                                                  full[c0 : c0 + rows].view(torch.int16))
+                      and not bool(buf[:, :106496].view(torch.int16).any())
+                      and not bool(buf[:, 106496 + f :].view(torch.int16).any()),
+                      f"k2 block N={n} [{c0}, {c0 + rows}) F={f} first={first}: {differ} samples "
+                      "differ from the plain block, or from the full launch's rows, or it "
+                      "overruns")
+            del full, want, buf, got, chunk
+        emit("k2_parity", n=n, block=[c0, rows], p=p, frames=[8 * 1024 * 1024, 3 * 8192 + 640 + 37],
+             histories=["head", "carried"], exact=True, equal_to_full_rows=True)
 
     # Full width, as the wideband path runs it: N = 12, one super-step's
     # frames, written into the columns of a staged batch behind the halo.
@@ -842,15 +913,26 @@ def phase_k2(card: str):
                      "channelize_kernel", flush=flush)
     k_ms_runtime = kernel_ms(runtime_taps, "channelize_kernel", flush=flush)
     plain_ms = event_ms(lambda: channelize_requantize_plain(spec, hist, chunk, False), flush=flush)
-    del flush, staged
     rate = card_rate(FP32_INSTR_PER_CLOCK_PER_SM)
+    # The wideband mesh's channel blocks at the same shape, by events.
+    blocks = []
+    for _, c0, rows in K2_BLOCKS:
+        rows_out = staged[c0 : c0 + rows, hs : hs + w]
+        block_ms = event_ms(lambda: channelize_requantize_fused(
+            spec, hist, chunk, False, out=rows_out, channel_start=c0, channel_count=rows),
+            flush=flush)
+        bw = channelizer_work(spec, w, rate, c0, rows)
+        blocks.append({"block": [c0, rows], "ms": block_ms, "bound_ms": bw["bound_ms"],
+                       "bound_by": bw["bound_by"], "f32_instr": bw["f32_instr"],
+                       "roofline_share_events": bw["bound_ms"] / block_ms})
+    del flush, staged
     work = channelizer_work(spec, w, rate)
     emit("k2_time", card=card, n=n, frames=w, ms=ms, kernel_ms=k_ms,
          kernel_ms_runtime_taps=k_ms_runtime, plain_ms=plain_ms,
          **work, f32_instr_per_s=rate, roofline_share=work["bound_ms"] / k_ms,
          roofline_share_events=work["bound_ms"] / ms,
          roofline_share_reference_order=work["bound_ms_reference_order"] / k_ms,
-         max_abs_err=max_err, ptxas=ptxas_by_entry("channelizer"))
+         blocks=blocks, max_abs_err=max_err, ptxas=ptxas_by_entry("channelizer"))
     return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": work["bound_ms"],
             "bound_by": work["bound_by"], "max_abs_err": max_err}
 
@@ -1474,6 +1556,260 @@ def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
     return launches
 
 
+def phase_wide_mesh(card: str, wide, window_blocks: int = 1024) -> tuple:
+    """The channel x time WidebandMeshDecoder at full width: the wideband
+    phase's capture through mesh (2, 2), one window a time shard, its four
+    shards on the one card (so a super-batch is 2 windows of every channel:
+    one full super-batch and a flushed partial one of 256 blocks; the
+    filter history and the decode halo cross a time-shard seam and a
+    super-batch seam), equal to the WidebandDecoder's stream; then the CLI's
+    -channels=12 -mesh on every local card and, with -checkpoint, on two
+    devices of the card ((2, 1): SIGINT during a read, then the resumed
+    run), each equal to the plain -channels=12 run. Returns K1's and K2's
+    launches in the mesh's runs (the plain CLI run comes first)."""
+    wb, planted, wb_msgs = wide
+    t_phase = time.perf_counter()
+    n = WIDE_CHANNELS
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def fresh():
+        return WidebandMeshDecoder([new_parser(x, 72) for x in ALL], n_channels=n,
+                                   mesh_shape=WIDE_MESH, devices=[dev] * 4,
+                                   window_blocks=window_blocks, max_hits=256,
+                                   scan_windows=WIDE_MESH_SCAN)
+
+    dec = fresh()
+    w = dec.spec.window
+    chunk = max(n * dec.cfg.block_size2, 1 << 18)  # the CLI's chunk size
+
+    def feed_all(d, data):
+        msgs = []
+        for pos in range(0, data.size, chunk):
+            msgs.extend(d.feed(data[pos : pos + chunk]))
+        msgs.extend(d.flush())
+        return msgs
+
+    feed_all(fresh(), wb[: dec.window_bytes])  # warm-up: allocator, pinned pools
+    torch.cuda.synchronize()
+    # Where the host time of a super-batch goes. The timed calls nest:
+    # _process_chunk > {K2's enqueue, the window programs' enqueue, _complete >
+    # {fetch, each channel's complete > _parse_window}}; flush's drain calls
+    # _complete outside _process_chunk.
+    clock = HostClock()
+    for name in ("_process_chunk", "_complete", "drain"):
+        clock.wrap(dec, name)
+    for name in ("channelize_requantize_fused", "decode_windows_scan", "fetch"):
+        clock.wrap(wideband_mesh_mod, name)
+    for c in dec._chan:
+        clock.wrap(c, "complete")
+        clock.wrap(c, "_parse_window")
+    decode_stencil.launches = 0
+    channelize_requantize_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        msgs = feed_all(dec, wb)
+    finally:
+        clock.restore()
+    elapsed = time.perf_counter() - t0
+    k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+    s = clock.s
+    batches = dec._window_index // (dec.tdev * dec.scan_windows)
+    snap = dec.metrics_snapshot()
+    got = [(c, b, str(m)) for c, b, m in msgs]
+    check(got == [(c, b, str(m)) for c, b, m in wb_msgs],
+          f"wide_mesh: {len(got)} messages, the WidebandDecoder {len(wb_msgs)}, or they differ")
+    check({(c, m.msg_type(), m.meter_id()) for c, _, m in msgs} == planted,
+          "wide_mesh: the messages are not the planted set")
+    check(batches == 2 and k2 == batches * WIDE_MESH[0] * WIDE_MESH[1],
+          f"wide_mesh: {k2} K2 launches for {batches} super-batches")
+    check(k1 == dec._window_index * n + snap["hit_overflows"],
+          f"wide_mesh: {k1} K1 launches for {dec._window_index * n} dispatched windows")
+    complete_in_steps = s["_complete"] - s["drain"]
+    host_ms = {k: v * 1e3 / batches for k, v in {
+        "stage_h2d_and_copies": (s["_process_chunk"] - s["channelize_requantize_fused"]
+                                 - s["decode_windows_scan"] - complete_in_steps),
+        "enqueue_k2": s["channelize_requantize_fused"],
+        "enqueue_window_programs": s["decode_windows_scan"],
+        "wait_for_card": s["fetch"],
+        "parse": s["_parse_window"],
+        "unpack": s["complete"] - s["_parse_window"],
+        "order_and_ghost_dedup": s["_complete"] - s["fetch"] - s["complete"],
+        "feed_other": elapsed - s["_process_chunk"] - s["drain"],
+    }.items()}
+    samples = wb.size // 2
+    emit("wide_mesh", card=card, mesh=list(WIDE_MESH), scan_windows=WIDE_MESH_SCAN,
+         devices=[str(dev)] * 4, super_batches=batches, messages=len(msgs), planted=len(planted),
+         equal_to_wideband=True, launches_k1=k1, launches_k2=k2,
+         hit_overflows=snap["hit_overflows"], wideband_samples=samples, seconds=elapsed,
+         wideband_samples_per_s=samples / elapsed, host_ms_per_super_batch=host_ms,
+         note="four shards on one card: the layout's cost on one card, not a multi-card speed")
+    del dec
+
+    # The CLI: -channels=12 -mesh on every local card and on two devices.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wideband.bin")
+        wb.tofile(path)
+        args = ["-msgtype=all", "-symbollength=72", f"-windowblocks={window_blocks}",
+                f"-channels={n}"]
+        argv = args + ["-format=json", f"-fromfile={path}"]
+        # The plain run, which the -mesh runs must equal, is not counted.
+        saved_counts = decode_stencil.launches, channelize_requantize_fused.launches
+        rc, plain, _ = run_cli(argv)
+        decode_stencil.launches, channelize_requantize_fused.launches = saved_counts
+        check(rc == 0 and len(plain) == len(planted), f"wide_mesh cli: plain rc {rc}, {len(plain)}")
+        cards = torch.cuda.device_count()
+        rc, recs, err = run_cli(argv + ["-mesh"])
+        check(rc == 0 and recs == plain and f"over {cards} devices" in err,
+              f"wide_mesh cli every_card: rc {rc}, {len(recs)} records, plain {len(plain)}: "
+              f"{err[-300:]}")
+        # SIGINT during the read a super-batch and an eighth in; the stream
+        # stops at that feed's end and saves at the super-batch boundary.
+        sb_bytes = 2 * n * w * 2  # (2, 1) x 2 windows a time shard
+        ckpt = cli_resume("wide_mesh", path, args + ["-mesh"],
+                          (sb_bytes + sb_bytes // 8) // (1 << 18),
+                          device=[dev] * WIDE_MESH_CLI_DEVICES)
+        check(ckpt.pop("records") == plain and ckpt["boundary"] == sb_bytes,
+              f"wide_mesh cli: the -checkpoint run differs or saved at {ckpt['boundary']}")
+    k1, k2 = decode_stencil.launches, channelize_requantize_fused.launches
+    emit("wide_mesh_cli", card=card, every_card=len(recs), devices=WIDE_MESH_CLI_DEVICES,
+         cli_checkpoint=ckpt, launches_k1=k1, launches_k2=k2,
+         seconds=time.perf_counter() - t_phase)
+    return k1, k2
+
+
+#: a process of the multihost phase: the CLI, then K1's launches in it as
+#: one JSON line on stderr; with a first argument "--sigint-at=K", process 0
+#: raises SIGINT during its K-th super-batch, as a user's Ctrl-C
+MULTIHOST_CHILD = """
+import json, signal, sys
+from rtlamr_tpu_torch.cli.main import main
+from rtlamr_tpu_torch.ops.stencil import decode_stencil
+from rtlamr_tpu_torch.parallel.distributed import MultiHostDecoder
+argv = sys.argv[1:]
+if argv[0].startswith("--sigint-at="):
+    at = int(argv.pop(0).split("=")[1])
+    orig, calls = MultiHostDecoder.decode_superbatch_local, []
+    def step(self, *args, **kwargs):
+        calls.append(1)
+        if len(calls) == at and self.process_id == 0:
+            signal.raise_signal(signal.SIGINT)
+        return orig(self, *args, **kwargs)
+    MultiHostDecoder.decode_superbatch_local = step
+decode_stencil.launches = 0
+rc = main(argv)
+print(json.dumps({"launches_k1": decode_stencil.launches}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def multihost_run(argv, n_procs: int = 2, sigint_at: int = 0, timeout: int = 300):
+    """``n_procs`` processes of the multi-host CLI on the first visible
+    card, joined at a localhost port: each one's (records without Time,
+    stderr, K1 launches, -metrics dict). Kills them all on a failure."""
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=os.environ.get(
+        "CUDA_VISIBLE_DEVICES", "0").split(",")[0], PYTHONPATH=ROOT)
+    head = [sys.executable, "-c", MULTIHOST_CHILD] + ([f"--sigint-at={sigint_at}"]
+                                                      if sigint_at else [])
+    procs = [subprocess.Popen(head + argv + [f"-coordinator=127.0.0.1:{port}",
+                                             f"-numprocs={n_procs}", f"-procid={p}", "-metrics"],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for p in range(n_procs)]
+    out = []
+    try:
+        for p, proc in enumerate(procs):
+            o, e = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0, f"multihost: process {p} rc {proc.returncode}: {e[-1500:]}")
+            recs = [json.loads(ln) for ln in o.splitlines() if ln.startswith('{"Time"')]
+            for r in recs:
+                r.pop("Time")
+            launches = json.loads(e.strip().splitlines()[-1])["launches_k1"]
+            metrics = re.search(r"^metrics: (\{.*\})$", e, re.M)
+            check(metrics is not None, f"multihost: process {p} printed no metrics: {e[-500:]}")
+            out.append((recs, e, launches, ast.literal_eval(metrics.group(1))))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_multihost(card: str, iq: np.ndarray, feed_msgs, window_blocks: int = 1024) -> list:
+    """The multi-host decoder: the throughput capture (4 windows and a
+    13-block partial one) through ``python -m rtlamr_tpu_torch
+    -coordinator -checkpoint`` in two processes on the card, one local
+    device and two windows a shard each (one full super-batch and a partial
+    one, so the halo ring crosses the process seam and its wrap hop the
+    super-batch seam), with SIGINT on process 0 during its first
+    super-batch, and then the resumed run: the two runs' records partition the plain CLI's,
+    each message at Offset = its block x block bytes, each in its own
+    process's windows and in window order; each process launches K1 once a
+    window it dispatched and once an escalation. Returns K1's launches per
+    process, over both runs."""
+    t_phase = time.perf_counter()
+    cfg = build_decoder_config([new_parser(n, 72) for n in ALL])
+    spec = make_frontend_spec(cfg, window_blocks)
+    bs2, w = cfg.block_size2, spec.window
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "throughput.bin")
+        iq.tofile(path)
+        args = ["-msgtype=all", "-symbollength=72", f"-windowblocks={window_blocks}",
+                "-format=json", f"-fromfile={path}"]
+        rc, plain, _ = run_cli(args)
+        check(rc == 0 and len(plain) == len(feed_msgs), f"multihost: plain rc {rc}, {len(plain)}")
+        want = sorted((b * bs2, json.dumps(r["Message"], sort_keys=True))
+                      for (b, _), r in zip(feed_msgs, plain))
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        head = multihost_run(args + [f"-checkpoint={ck}"], sigint_at=1)
+        t1 = time.perf_counter()
+        check(all("interrupted" in e and "checkpoint saved at byte" in e for _, e, _, _ in head),
+              "multihost: the interrupted run saved no checkpoint")
+        tail = multihost_run(args + [f"-checkpoint={ck}"])
+        t2 = time.perf_counter()
+        check(not os.path.exists(ck + ".p0.meta.json"), "multihost: checkpoint left at EOF")
+    runs = list(zip(head, tail))
+    got = [[(r["Offset"], json.dumps(r["Message"], sort_keys=True)) for r in h[0] + t[0]]
+           for h, t in runs]
+    check(sorted(got[0] + got[1]) == want,
+          f"multihost: {len(got[0])} + {len(got[1])} records over the interrupted and resumed "
+          f"runs, the plain CLI {len(want)}, or they differ")
+    for p, recs in enumerate(got):
+        offsets = [off for off, _ in recs]
+        check(offsets == sorted(offsets)
+              and all((off // bs2 // (w // spec.block_size)) // 2 % 2 == p for off in offsets),
+              f"multihost: process {p} emitted out of window order or a message of another "
+              "process's windows")
+    launches, windows, overflows, batches, ring_ms, seam_ms = [], [], [], [], [], []
+    for p, (h, t) in enumerate(runs):
+        k = h[2] + t[2]
+        b = h[3]["superbatches"] + t[3]["superbatches"]
+        o = h[3]["hit_overflows"] + t[3]["hit_overflows"]
+        # every window of a super-batch is dispatched, valid or not
+        check(k == b * 2 + o, f"multihost: process {p} launched K1 {k} times, want "
+              f"{b} super-batches x 2 windows + {o} escalations")
+        launches.append(k)
+        batches.append(b)
+        overflows.append(o)
+        windows.append(h[3]["windows_decoded"] + t[3]["windows_decoded"])
+        ring_ms.append((h[3]["ring_exchange_ms"] + t[3]["ring_exchange_ms"]) / b)
+        seam_ms.append((h[3]["seam_dedup_ms"] + t[3]["seam_dedup_ms"]) / b)
+    emit("multihost", card=card, processes=2, devices_per_process=1, scan_windows=2,
+         super_batches=batches, records=[len(g) for g in got], plain=len(want),
+         partition_of_plain=True, launches_k1_per_process=launches,
+         windows_per_process=windows, hit_overflows=overflows,
+         ring_exchange_ms_per_super_batch=ring_ms, seam_dedup_ms_per_super_batch=seam_ms,
+         interrupted_records=[len(r) for r, _, _, _ in head],
+         resumed_records=[len(r) for r, _, _, _ in tail],
+         interrupted_run_seconds=t1 - t0, resumed_run_seconds=t2 - t1,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def phase_wideband_cli():
     """tests/test_wideband.py's six-packet four-channel capture through the
     CLI with -crosschanneldedup: exactly the planted packets. (In
@@ -1550,7 +1886,6 @@ def main() -> int:
         rows = [r for f in oracle for r in f.result()]
     finally:
         pool.shutdown(cancel_futures=True)
-    del wide
     want = [(b, str(m)) for b, m in msgs]
     check(rows == want, f"resume_oracle: the oracle gives {len(rows)} messages, the "
           f"straight stream (and so every resumed one) {len(want)}, or they differ")
@@ -1559,6 +1894,9 @@ def main() -> int:
     # The native phase times host work, so it runs once the workers are done.
     native_k1 = phase_native(card, iq, planted, msgs, feed_host_ms)
     mesh_k1 = phase_mesh(card, iq, msgs)
+    wmesh_k1, wmesh_k2 = phase_wide_mesh(card, wide)
+    del wide
+    multihost_k1 = phase_multihost(card, iq, msgs)
     del msgs
     k1 = phase_k1(card, iq)
     del iq
@@ -1576,6 +1914,8 @@ def main() -> int:
         "launches_resume": resume_k1,
         "launches_native": native_k1,
         "launches_mesh": mesh_k1,
+        "launches_wide_mesh": wmesh_k1,
+        "launches_multihost_per_process": multihost_k1,
         "parity": "exact",
         "max_abs_err": k1["max_abs_err"],
         "ms": k1["ms"],
@@ -1593,6 +1933,8 @@ def main() -> int:
         "launches": wide_k2,
         "launches_wideband_cli": wcli_k2,
         "launches_resume": resume_k2,
+        "launches_wide_mesh": wmesh_k2,
+        "blocks": [f"[{c0}, {c0 + rows}) of {n}" for n, c0, rows in K2_BLOCKS],
         "parity": "exact",
         "max_abs_err": k2["max_abs_err"],
         "ms": k2["ms"],

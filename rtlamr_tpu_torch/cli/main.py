@@ -1,7 +1,7 @@
 """rtlamr CLI — receiver lifecycle and the streaming loop.
 
-Port of the JAX package's ``cli/main.py`` for one card, mirroring the
-reference's orchestration (main.go:59-368): flag handling and env override,
+Port of the JAX package's ``cli/main.py``, mirroring the reference's
+orchestration (main.go:59-368): flag handling and env override,
 receiver construction, tuner configuration over rtl_tcp, filter-chain
 assembly, the steady-state decode loop with cross-block dedup, -single
 one-shot behavior, -duration time limit, and -samplefile dumping. The
@@ -11,34 +11,39 @@ filtered, deduped messages. The decoder is the narrowband
 search on the card) or, with ``-channels`` > 1, the
 :class:`~rtlamr_tpu_torch.parallel.WidebandDecoder` (CUDA channelizer
 kernel, then the same window program for every channel), with
-``-crosschanneldedup``, or, with ``-mesh`` and one channel, the
-:class:`~rtlamr_tpu_torch.parallel.MeshDecoder` (the same windows
-time-sharded over every local card).
+``-crosschanneldedup``; with ``-mesh``, the
+:class:`~rtlamr_tpu_torch.parallel.MeshDecoder` (one channel: the same
+windows time-sharded over every local card) or the
+:class:`~rtlamr_tpu_torch.parallel.WidebandMeshDecoder` (``-channels``
+> 1: channel x time shards over every local card). ``-coordinator`` runs
+:func:`run_multihost`, the multi-host decoder of a -fromfile capture over
+processes joined by ``torch.distributed`` (gloo).
 
 ``-ingest`` picks the sample transport: ``native`` the C++ transport
 (``native/``: mmapped capture files, an rtl_tcp reader thread and ring),
 ``python`` the ``io/`` module, ``auto`` native when its library builds.
 Standard input is always read by Python. ``-checkpoint`` resumes and saves
-the stream position of every decoder here (``decoder/checkpoint.py``). Not
-ported yet, and refused with exit code 1 until their slice lands:
-``-channels`` with ``-mesh`` (multi-GPU wideband) and ``-coordinator``
-(multi-host).
+the stream position of every decoder here (``decoder/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 import datetime
 import itertools
+import os
 import signal
 import sys
 import threading
 import time
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from .. import __version__, native
 from ..decoder.checkpoint import (
+    MultiHostCheckpoint,
     capture_checkpoint,
     checkpoint_exists,
     load_checkpoint,
@@ -56,8 +61,10 @@ from ..io.capture import (
     StdinSource,
 )
 from ..io.rtltcp import RtlTcpClient
-from ..parallel.mesh import MeshDecoder
+from ..parallel.distributed import MultiHostDecoder, initialize
+from ..parallel.mesh import MeshDecoder, resolve_devices
 from ..parallel.wideband import WidebandDecoder
+from ..parallel.wideband_mesh import WidebandMeshDecoder
 from ..protocols import new_parser
 from .encoders import LogMessage, make_encoder
 from .filters import FilterChain, MeterIDFilter, MeterTypeFilter, UniqueFilter
@@ -88,32 +95,27 @@ def build_filter_chain(fs: FlagSet) -> FilterChain:
     return fc
 
 
-#: where the modes this port does not run yet arrive
-UNPORTED_SLICE = "the multi-GPU wideband and multi-host slice"
-
 #: the -device argument of run(): one device, or for -mesh one device a shard
 Devices = Union[DeviceLike, Sequence[DeviceLike]]
 
 
-def _refuse_unported(fs: FlagSet) -> None:
-    """Exit 1, naming the slice that brings it, for a mode this port does
-    not run yet."""
-    channels = fs.value("channels")
-    if channels < 1:
-        _log(f"invalid -channels value {channels} (want >= 1)")
-        raise SystemExit(1)
-    mesh = "-channels with -mesh (channel x time mesh)"
-    if fs.value("checkpoint"):
-        mesh += " and its -checkpoint"
-    unported = [
-        (fs.value("mesh") and channels > 1, mesh),
-        (bool(fs.value("coordinator")), "-coordinator (multi-host decode)"),
-    ]
-    for active, what in unported:
-        if active:
-            _log(f"{what} is not ported to rtlamr_tpu_torch yet; "
-                 f"it arrives with {UNPORTED_SLICE}")
-            raise SystemExit(1)
+def _wideband_mesh_shape(channels: int, n_devices: int) -> Tuple[int, int]:
+    """(cdev, tdev) for -channels -mesh: the largest channel-axis shard
+    count that divides both the channel count and the device count (channel
+    sharding needs no halo, so it is preferred), time shards on the rest
+    (rtlamr_tpu/cli/main.py:64-74)."""
+    for cdev in range(min(channels, n_devices), 0, -1):
+        if channels % cdev == 0 and n_devices % cdev == 0:
+            return cdev, n_devices // cdev
+    return 1, n_devices
+
+
+def _mesh_devices(device: Devices) -> List[torch.device]:
+    """-mesh's devices: the caller's list, one device as a list of one, or
+    None, every local card (raises without one)."""
+    if device is not None and not isinstance(device, (list, tuple)):
+        device = [device]
+    return resolve_devices(device, "-mesh")
 
 
 class Receiver:
@@ -121,7 +123,10 @@ class Receiver:
 
     def __init__(self, fs: FlagSet, device: Devices = None):
         self.fs = fs
-        _refuse_unported(fs)
+        channels = fs.value("channels")
+        if channels < 1:
+            _log(f"invalid -channels value {channels} (want >= 1)")
+            raise SystemExit(1)
         ingest = fs.value("ingest")
         if ingest not in ("auto", "native", "python"):
             _log(f"invalid -ingest value {ingest!r} (want auto|native|python)")
@@ -147,16 +152,33 @@ class Receiver:
                 raise SystemExit(1)
 
         self.fc = build_filter_chain(fs)
-        self.wideband = fs.value("channels") > 1
-        mesh = fs.value("mesh") and not self.wideband
+        self.wideband = channels > 1
+        mesh = fs.value("mesh")
         if isinstance(device, (list, tuple)) and not mesh:
             raise ValueError("a list of devices needs -mesh")
-        if self.wideband:
+        if self.wideband and mesh:
+            # The channel x time mesh over every local card, or over the
+            # caller's devices (parallel/wideband_mesh.py).
+            devices = _mesh_devices(device)
+            cdev, tdev = _wideband_mesh_shape(channels, len(devices))
+            _log(f"wideband mesh: {cdev} channel-shards x {tdev} time-shards over "
+                 f"{cdev * tdev} devices")
+            self.decoder = WidebandMeshDecoder(
+                self.parsers,
+                n_channels=channels,
+                mesh_shape=(cdev, tdev),
+                devices=devices,
+                window_blocks=fs.value("windowblocks"),
+                max_hits=fs.value("maxhits"),
+                filter_fn=self.fc.match,
+                cross_channel_dedup=fs.value("crosschanneldedup"),
+            )
+        elif self.wideband:
             # One stream at channels*samplerate, channelized on the card
             # and decoded per channel (parallel/wideband.py).
             self.decoder = WidebandDecoder(
                 self.parsers,
-                n_channels=fs.value("channels"),
+                n_channels=channels,
                 window_blocks=fs.value("windowblocks"),
                 max_hits=fs.value("maxhits"),
                 filter_fn=self.fc.match,
@@ -166,11 +188,9 @@ class Receiver:
         elif mesh:
             # Time-sharded over every local card (one shard each), or over
             # the caller's devices.
-            if device is not None and not isinstance(device, (list, tuple)):
-                device = [device]
             self.decoder = MeshDecoder(
                 self.parsers,
-                devices=device,
+                devices=_mesh_devices(device),
                 window_blocks=fs.value("windowblocks"),
                 max_hits=fs.value("maxhits"),
                 filter_fn=self.fc.match,
@@ -285,6 +305,198 @@ def _read_past(source: IQSource, n_bytes: int, keep: int):
     return done, tail
 
 
+class _SigintFlag:
+    """While active (in the main thread only), SIGINT sets ``raised``
+    instead of interrupting: the decode loop reads it between two steps,
+    where the decoder state and the bytes consumed agree."""
+
+    def __init__(self, active: bool):
+        self.raised = False
+        self._prev, self._set = None, False
+        if active and threading.current_thread() is threading.main_thread():
+            self._prev = signal.signal(signal.SIGINT, self._on_sigint)
+            self._set = True
+
+    def _on_sigint(self, *_):
+        self.raised = True
+
+    def close(self) -> None:
+        if self._set:
+            signal.signal(signal.SIGINT, self._prev)
+            self._set = False
+
+
+def run_multihost(fs: FlagSet, out=None, device: Devices = None) -> int:
+    """Multi-host capture decode (-coordinator/-numprocs/-procid), port of
+    rtlamr_tpu/cli/main.py:282-463.
+
+    Every process runs the SAME command: it joins the gloo process group at
+    -coordinator and decodes its contiguous share of every super-batch of
+    the -fromfile capture through
+    :class:`~rtlamr_tpu_torch.parallel.distributed.MultiHostDecoder` on its
+    local devices (every visible card; ``-cpudevices=N`` N CPU devices, or
+    ``device`` when the caller gives one or a list), with the halo ring and
+    the seam digest dedup over gloo, so a packet on a process seam decodes
+    once globally. Each process emits ITS windows' messages on its own
+    stdout, with Offset = global block index x block bytes and Length = one
+    block: the message's block in the -fromfile capture.
+
+    After every super-batch the processes agree on whether to stop with one
+    gloo ``all_reduce``: a -duration deadline, the -single condition over
+    every process's messages, or SIGINT (taken only between super-batches)
+    on any process. ``-checkpoint=PATH`` resumes from and saves one file set
+    a process (``PATH.pN``) at the exact byte boundary consumed: a stop
+    after the last, partial super-batch saves the capture's end, and its
+    resume decodes nothing again. A run to the end of the capture deletes
+    the set."""
+    out = sys.stdout if out is None else out
+    fromfile = fs.value("fromfile")
+    if not fromfile or fromfile == "-":
+        _log("-coordinator requires -fromfile (seekable capture)")
+        return 1
+    # Flags the multi-host batch path does not implement: say so rather than
+    # dropping them silently.
+    for name in ("samplefile", "channels", "latency", "mesh"):
+        if fs[name].set_explicitly:
+            _log(f"-{name} is not supported in multi-host mode; ignoring")
+    chip_length = fs.value("symbollength")
+    try:
+        parsers = [new_parser(name, chip_length) for name in expand_msgtypes(fs.value("msgtype"))]
+    except ValueError as e:
+        _log("message type error:", e)
+        return 1
+    num_procs, proc_id = fs.value("numprocs"), fs.value("procid")
+    cpudev = fs.value("cpudevices")
+    created = not dist.is_initialized()
+    local = initialize(fs.value("coordinator"), num_procs, proc_id,
+                       cpu_devices_per_process=cpudev if cpudev > 0 else None)
+    if local is None and device is not None:
+        local = _mesh_devices(device)
+    try:
+        return _run_multihost(fs, out, parsers, local)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run_multihost(fs: FlagSet, out, parsers, devices) -> int:
+    fc = build_filter_chain(fs)
+    dec = MultiHostDecoder(parsers, window_blocks=fs.value("windowblocks"),
+                           max_hits=fs.value("maxhits"), filter_fn=fc.match, devices=devices)
+    p, n = dec.process_id, dec.num_processes
+    _log(dec.cfg.describe())
+    _log(f"multi-host: process {p} of {n}, {dec.n_local} local devices, "
+         f"{dec.n_global} in all")
+    encoder = make_encoder(fs.value("format"), out)
+    fromfile = fs.value("fromfile")
+    lwb = dec.local_window_bytes
+    batch_bytes = n * lwb
+    bs2 = dec.cfg.block_size2
+    total_blocks = os.path.getsize(fromfile) // bs2
+    batch_blocks = batch_bytes // bs2
+    n_batches = -(-total_blocks // batch_blocks)
+
+    single = fs.value("single")
+    filter_ids = sorted(fs.value("filterid")) if fs["filterid"].set_explicitly else []
+    waiting_ids = set(filter_ids) if single else set()
+    duration = fs.value("duration")
+    deadline = time.monotonic() + duration if duration > 0 else None
+    ckpt_path = fs.value("checkpoint")
+
+    # Resume: every process holds its own file set, and all must agree.
+    j0, status = 0, ("none", 0)
+    if ckpt_path and os.path.exists(f"{ckpt_path}.p{p}.meta.json"):
+        try:
+            ckpt = MultiHostCheckpoint.load(ckpt_path, p)
+            restore_checkpoint(dec, ckpt)
+            if ckpt.byte_offset > total_blocks * bs2:
+                raise ValueError(f"the capture's whole blocks end at byte {total_blocks * bs2}, "
+                                 f"before the checkpoint's {ckpt.byte_offset}")
+            status = ("resume", ckpt.byte_offset)
+        except (OSError, ValueError) as e:  # every process learns of it below
+            _log(f"-checkpoint: {e}")
+            status = ("error", 0)
+    statuses = [None] * n
+    dist.all_gather_object(statuses, status)
+    if any(s[0] == "error" for s in statuses) or len(set(statuses)) != 1:
+        if len(set(statuses)) != 1:
+            _log(f"-checkpoint: the processes' file sets disagree: {statuses}")
+        return 1
+    if status[0] == "resume":
+        # The exact boundary consumed: a stop after the last, partial
+        # super-batch saved the capture's end, which resumes past it.
+        j0 = -(-status[1] // batch_bytes)
+        _log(f"resumed from checkpoint at byte {status[1]}")
+
+    got_any = False  # -single without -filterid: any message stops the run
+
+    def emit(msgs) -> None:
+        nonlocal got_any
+        for b, msg in msgs:
+            got_any = True
+            if waiting_ids:
+                waiting_ids.discard(msg.meter_id())
+            encoder.encode(LogMessage(time=datetime.datetime.now(), offset=b * bs2,
+                                      length=bs2, msg=msg))
+
+    def agree_stop(sigint: bool) -> Tuple[bool, bool, bool]:
+        """One all_reduce (MAX) of this process's votes, so every process
+        reaches the same verdict: (stop, deadline hit, SIGINT) anywhere. With
+        -single -filterid the meters still awaited are those no process has
+        seen."""
+        late = deadline is not None and time.monotonic() >= deadline
+        done = single and (not waiting_ids if filter_ids else got_any)
+        seen = [0 if i in waiting_ids else 1 for i in filter_ids] if single else []
+        votes = torch.tensor([int(done), int(late), int(sigint)] + seen, dtype=torch.int64)
+        dist.all_reduce(votes, op=dist.ReduceOp.MAX)
+        v = votes.tolist()
+        if single and filter_ids:
+            waiting_ids.intersection_update(i for i, s in zip(filter_ids, v[3:]) if not s)
+            v[0] = int(not waiting_ids)
+        return bool(max(v[:3])), bool(v[1]), bool(v[2])
+
+    sigint = _SigintFlag(True)
+    stopped = interrupted = single_stop = False
+    j = j0
+    try:
+        with open(fromfile, "rb") as f:
+            while j < n_batches:
+                f.seek(j * batch_bytes + p * lwb)
+                seg = np.frombuffer(f.read(lwb), np.uint8)
+                if seg.size < lwb:
+                    seg = np.concatenate([seg, np.zeros(lwb - seg.size, np.uint8)])
+                vb = min(total_blocks - j * batch_blocks, batch_blocks)
+                emit(dec.decode_superbatch_local(seg, None if vb == batch_blocks else vb))
+                j += 1
+                stopped, late, interrupted = agree_stop(sigint.raised)
+                if stopped:
+                    if late:
+                        _log("time limit reached")
+                    if interrupted:
+                        _log("interrupted")
+                    single_stop = not (late or interrupted)
+                    break
+        # Complete the dispatch-ahead tail. After a -single stop the
+        # reference's receiver is already cancelled (main.go:270-276), so
+        # in-flight messages are not emitted, unless a checkpoint follows
+        # (its resume starts after them).
+        tail = dec.drain()
+        if not single_stop or ckpt_path:
+            emit(tail)
+        if ckpt_path:
+            if stopped or j < n_batches:
+                boundary = min(j * batch_bytes, total_blocks * bs2)
+                capture_checkpoint(dec, boundary).save(ckpt_path)
+                _log(f"checkpoint saved at byte {boundary}")
+            else:  # a run to the end of the capture needs none
+                remove_checkpoint(ckpt_path, p)
+    finally:
+        sigint.close()
+        if fs.value("metrics"):
+            _log("metrics:", dec.metrics.snapshot())
+    return 0
+
+
 def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     """Decode loop; messages go to ``out`` (``sys.stdout`` as it is at call
     time when None, so a caller's stdout redirection applies).
@@ -296,6 +508,8 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     position always matches the decoder's state."""
     from ..utils.observability import RateWatchdog, profile_trace
 
+    if fs.value("coordinator"):
+        return run_multihost(fs, out, device)
     out = sys.stdout if out is None else out
     receiver = Receiver(fs, device)
     # Startup config dump, unconditional — the reference logs the decoder
@@ -418,11 +632,7 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     # With -checkpoint, SIGINT only sets a flag, read at the top of each
     # iteration: the stream then stops between two feeds, where the decoder
     # state and ``consumed`` agree.
-    sigint = []
-    prev_handler, handler_set = None, False
-    if ckpt_path and threading.current_thread() is threading.main_thread():
-        prev_handler = signal.signal(signal.SIGINT, lambda *_: sigint.append(True))
-        handler_set = True
+    sigint = _SigintFlag(bool(ckpt_path))
     dropped_seen = 0
     stop = eof = False
     at_boundary = True  # no feed is under way
@@ -430,7 +640,7 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
         try:
             with profile_trace(fs.value("profiledir") or None):
                 while not stop:
-                    if sigint:
+                    if sigint.raised:
                         _log("interrupted")
                         break
                     if deadline is not None and time.monotonic() >= deadline:
@@ -487,8 +697,7 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
                 capture_checkpoint(dec, boundary).save(ckpt_path)
                 _log(f"checkpoint saved at byte {boundary}")
     finally:
-        if handler_set:
-            signal.signal(signal.SIGINT, prev_handler)
+        sigint.close()
         if fs.value("metrics"):
             snap = dec.metrics_snapshot() if wideband else dec.metrics.snapshot()
             _log("metrics:", snap)

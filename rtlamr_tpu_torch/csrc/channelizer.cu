@@ -16,6 +16,13 @@
 //             branches b ascending                         (DFT mix)
 //   out[c][m] = q(cr) | q(ci) << 8, q(v) = clip(rint(v + 127.5), 0, 255)
 //
+// for the channels c of one block [C0, C0 + C), written as rows c - C0: all
+// N by default, or the rows of one channel shard of the wideband mesh
+// (rtlamr_tpu_torch/parallel/wideband_mesh.py), which runs every branch and
+// only its own rows of the mix, as the JAX mesh's mix_channels(spec, y,
+// channel_start, channel_count) does. A block's rows are the same operations
+// on the same values as those rows of the full launch, so the same bytes.
+//
 // Every product and sum is rounded on its own, in the reference's order
 // (__fmul_rn / __fadd_rn / __fsub_rn, never an FMA), so the result is
 // byte-equal to the plain PyTorch version
@@ -38,13 +45,15 @@
 // the requantize cannot see.
 //
 // Design, for that bound (measured on an H100 by chip_smoke.py; PERF.md):
-// - N is a template argument, so the branch loop and the mix unroll fully
-//   and the 2 N T accumulators of a thread's T frames stay in registers. A
-//   library holds one instantiation, built on first use for the N and tap
-//   class a caller launches (-DRTLAMR_K2_N, -DRTLAMR_K2_P;
-//   ops/channelizer_fused.py kernel_library). The mix is the straight-line
-//   program of ops/channelizer_mix.py, generated from the float32 tables of
-//   that N into the build directory (channelizer_mix.cuh): one product for
+// - N and the block's row count C are template arguments (its first
+//   channel C0 lives in the generated mix alone), so the branch loop and
+//   the mix unroll fully and the 2 C T accumulators of a thread's T frames
+//   stay in registers. A library holds one instantiation, built on first
+//   use for the N, block and tap class a caller launches (-DRTLAMR_K2_N,
+//   -DRTLAMR_K2_C0, -DRTLAMR_K2_ROWS, -DRTLAMR_K2_P; ops/channelizer_fused.py
+//   kernel_library). The mix is the straight-line program of
+//   ops/channelizer_mix.py, generated from the float32 tables of that N for
+//   that block into the build directory (channelizer_mix.cuh): one product for
 //   each distinct coefficient magnitude of a branch, shared by its channels,
 //   none for a magnitude of 1, nothing for a 0, a copy for the first
 //   accumulation; the coefficients are immediates. P = 8, the only count any
@@ -87,8 +96,16 @@
 #ifndef RTLAMR_K2_P
 #define RTLAMR_K2_P 0                  // 0: the runtime tap loop, else FIXED_TAPS
 #endif
+#ifndef RTLAMR_K2_C0
+#define RTLAMR_K2_C0 0                 // the block's first channel
+#endif
+#ifndef RTLAMR_K2_ROWS
+#define RTLAMR_K2_ROWS RTLAMR_K2_N     // the block's channels
+#endif
 static_assert(RTLAMR_K2_N >= 1 && RTLAMR_K2_N <= MAX_CHANNELS, "1 <= N <= 32");
 static_assert(RTLAMR_K2_P == 0 || RTLAMR_K2_P == FIXED_TAPS, "P is 0 (runtime) or FIXED_TAPS");
+static_assert(RTLAMR_K2_C0 >= 0 && RTLAMR_K2_ROWS >= 1 && RTLAMR_K2_C0 + RTLAMR_K2_ROWS <= RTLAMR_K2_N,
+              "the block [C0, C0 + ROWS) lies inside [0, N)");
 
 #define MIX_MUL(dst, a, y) \
   _Pragma("unroll") for (int u = 0; u < T; ++u) dst[u] = __fmul_rn(a, y[u]);
@@ -100,6 +117,8 @@ static_assert(RTLAMR_K2_P == 0 || RTLAMR_K2_P == FIXED_TAPS, "P is 0 (runtime) o
   _Pragma("unroll") for (int u = 0; u < T; ++u) acc[u] = __fsub_rn(acc[u], v[u]);
 
 #include "channelizer_mix.cuh"
+static_assert(Mix<RTLAMR_K2_N>::kStart == RTLAMR_K2_C0 && Mix<RTLAMR_K2_N>::kRows == RTLAMR_K2_ROWS,
+              "the generated mix is of this block");
 
 // Must match ops/channelizer_fused.py _Args.
 struct ChannelizeArgs {
@@ -112,6 +131,7 @@ struct ChannelizeArgs {
   int tile;              // frames a CTA, THREADS * T
   int vec_in;            // set by the launcher: chunk 16-byte aligned
   int vec_out;           // set by the launcher: T u16 of a row in one store
+  int rows;              // the block's channels (output rows), C
   float taps[FIXED_TAPS * MAX_CHANNELS];  // (P, N) row-major when P == 8
 };
 
@@ -153,7 +173,7 @@ __device__ __forceinline__ int slot(int sub, int i) {
   return j * T * sub + (f & (T - 1)) * sub + (f >> log2_of(T));
 }
 
-template <int N, int P>
+template <int N, int C, int P>
 __global__ void __launch_bounds__(THREADS)
 channelize_kernel(const uint16_t* __restrict__ wb, const uint16_t* __restrict__ hist,
                   uint16_t* __restrict__ out, const float* __restrict__ taps_dev,
@@ -231,7 +251,7 @@ channelize_kernel(const uint16_t* __restrict__ wb, const uint16_t* __restrict__ 
   // T tid + u - p - d + P for tap p of a branch with delay d.
   const long long m = m0 + (long long)T * tid;
   if (m >= a.frames) return;
-  float cr[N][T], ci[N][T];  // set by branch 0's MIX_SET, then accumulated
+  float cr[C][T], ci[C][T];  // rows c - C0: set by branch 0's MIX_SET, then accumulated
 #pragma unroll
   for (int b = 0; b < N; ++b) {
     const int j = b == 0 ? 0 : N - b;
@@ -282,7 +302,7 @@ channelize_kernel(const uint16_t* __restrict__ wb, const uint16_t* __restrict__ 
   const long long left = a.frames - m;
   const bool whole = left >= T && a.vec_out;
 #pragma unroll
-  for (int c = 0; c < N; ++c) {
+  for (int c = 0; c < C; ++c) {
     uint16_t* o = out + c * a.out_stride + m;
     uint32_t q[T];
 #pragma unroll
@@ -306,13 +326,13 @@ static size_t smem_bytes(int n, int t, int p) {
   return (size_t)n * t * sub * sizeof(float2);
 }
 
-template <int N, int P>
+template <int N, int C, int P>
 static int launch(int dev, const void* wb, const void* hist, void* out, const void* taps_dev,
                   const ChannelizeArgs& a, void* stream) {
   static bool attr_set[64];  // the shared-memory ceiling, once per process and device
   if (!attr_set[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        channelize_kernel<N, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+        channelize_kernel<N, C, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
     if (err != cudaSuccess) return (int)err;
     attr_set[dev] = true;
   }
@@ -320,25 +340,27 @@ static int launch(int dev, const void* wb, const void* hist, void* out, const vo
   const size_t smem = smem_bytes(N, T, a.p);
   if (smem > SMEM_CAP) return (int)cudaErrorInvalidValue;
   const long long grid = (a.frames + THREADS * T - 1) / (THREADS * T);
-  channelize_kernel<N, P><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
+  channelize_kernel<N, C, P><<<(unsigned)grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const uint16_t*)wb, (const uint16_t*)hist, (uint16_t*)out, (const float*)taps_dev, a);
   return (int)cudaGetLastError();
 }
 
-// Launch channelize_kernel<RTLAMR_K2_N, RTLAMR_K2_P> on `stream`. Returns 0
-// or a CUDA error code: cudaErrorInvalidValue for arguments the kernel does
-// not take (an N or P this library does not hold, a plan that is not the
-// kernel's, or more shared memory than a CTA may have, at a large p), else
-// that of the attribute call or of the launch (cudaGetLastError). `wb`
-// holds frames * n u16 elements, `hist` p * n (the previous chunk's last p
-// frames; ignored when first), `out` n rows of `frames` u16 at row stride
+// Launch channelize_kernel<RTLAMR_K2_N, RTLAMR_K2_ROWS, RTLAMR_K2_P> on
+// `stream`. Returns 0 or a CUDA error code:
+// cudaErrorInvalidValue for arguments the kernel does not take (an N, block
+// or P this library does not hold, a plan that is not the kernel's, or more
+// shared memory than a CTA may have, at a large p), else that of the
+// attribute call or of the launch (cudaGetLastError). `wb` holds frames * n
+// u16 elements, `hist` p * n (the previous chunk's last p frames; ignored
+// when first), `out` rows rows of `frames` u16 at row stride
 // `out_stride`; `taps` is the (p, n) float32 device table, read by the
 // runtime tap loop (args->taps holds it for P = 8). `args` is a host
 // struct, read before the call returns.
 extern "C" int rtlamr_channelize(const void* wb, const void* hist, void* out, const void* taps,
                                  const ChannelizeArgs* args, void* stream) {
   ChannelizeArgs a = *args;
-  if (a.n != RTLAMR_K2_N || a.p < 1 || (RTLAMR_K2_P > 0 && a.p != RTLAMR_K2_P) ||
+  if (a.n != RTLAMR_K2_N || a.rows != RTLAMR_K2_ROWS || a.p < 1 ||
+      (RTLAMR_K2_P > 0 && a.p != RTLAMR_K2_P) ||
       a.frames < 1 || a.per_thread != frames_per_thread(a.n) ||
       a.tile != THREADS * a.per_thread || (a.frames + a.tile - 1) / a.tile > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
@@ -349,5 +371,5 @@ extern "C" int rtlamr_channelize(const void* wb, const void* hist, void* out, co
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  return launch<RTLAMR_K2_N, RTLAMR_K2_P>(dev, wb, hist, out, taps, a, stream);
+  return launch<RTLAMR_K2_N, RTLAMR_K2_ROWS, RTLAMR_K2_P>(dev, wb, hist, out, taps, a, stream);
 }

@@ -21,13 +21,26 @@ restoring it continues the decode bit-identically.
   staged tails ``chan_tail`` (N, halo_staged) u16; the meta holds each
   channel's block counter and digest set and the cross-channel ghost-dedup
   rows.
+- :class:`~rtlamr_tpu_torch.parallel.WidebandMeshDecoder`: kind
+  ``"wideband"`` with the JAX wideband mesh's ``(N, halo)`` tails (the
+  port's staged tails without the ``pad_shift`` samples no stencil reads),
+  so either package's wideband mesh resumes it; into a single-card wideband
+  decoder, or the reverse, it is refused as a geometry mismatch, as in the
+  JAX package.
+- :class:`~rtlamr_tpu_torch.parallel.distributed.MultiHostDecoder`: kind
+  ``"multihost"``, one file set a process, ``path.pN.meta.json`` and
+  ``path.pN.carry.bin`` (:class:`MultiHostCheckpoint`): the process's
+  ``(n_local, halo)`` carry rows in the JAX package's layout (row 0 of
+  process 0 is the stream tail, the only row either package reads; the
+  port writes zeros in the others), its dedup state and the seam
+  predecessor's digest hashes, with the topology it was saved for.
 
 The files are the JAX package's, so a checkpoint written by either package
 resumes in the other. The meta (``path.meta.json``) adds two keys, which the
 JAX package does not read: ``carry_sha256``, the digest of the carry file,
 and ``window``, the decoder's window in samples; the port checks both when
-they are present. The JAX package's wideband-mesh and multi-host
-checkpoints are refused.
+they are present. The multi-host decoder's per-process file sets,
+:class:`MultiHostCheckpoint`, are read by their own ``load``.
 
 A save is atomic: each file is written under a temporary name in the same
 directory and moved into place with ``os.replace``, the carry first, then
@@ -52,14 +65,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..parallel.distributed import MultiHostDecoder
 from ..parallel.mesh import MeshDecoder
 from ..parallel.wideband import WidebandDecoder
+from ..parallel.wideband_mesh import WidebandMeshDecoder
 from .pipeline import WindowDecoder
-
-#: the JAX package's wideband-mesh and multi-host checkpoints: where they
-#: arrive in the port
-MULTI_GPU = ("the wideband-mesh and multi-host checkpoints arrive with the multi-GPU "
-             "wideband and multi-host slice")
 
 
 def _ser_digests(digests) -> List[List]:
@@ -245,6 +255,80 @@ class WidebandCheckpoint:
         )
 
 
+@dataclass
+class MultiHostCheckpoint:
+    """Per-process resume point of a MultiHostDecoder stream, in the JAX
+    package's ``MultiHostCheckpoint`` file format (module docstring)."""
+
+    byte_offset: int  # GLOBAL capture bytes consumed (super-batch granular)
+    window_index: int
+    first: bool
+    last_block: int
+    carry_local: Optional[np.ndarray]  # (n_local, halo) u16; None at the stream head
+    prev_digests: List[Tuple]
+    #: (block, [8-byte digest hashes]) of process 0's seam predecessor: the
+    #: last process's last block with messages in the previous super-batch
+    prev_batch_tail: Optional[Tuple[int, List[bytes]]]
+    num_processes: int
+    process_id: int
+    n_global: int
+    scan_windows: int
+    window: int
+
+    def save(self, path: str) -> None:
+        tail = self.prev_batch_tail
+        meta = {
+            "kind": "multihost",
+            "byte_offset": self.byte_offset,
+            "window_index": self.window_index,
+            "first": self.first,
+            "last_block": self.last_block,
+            "prev_digests": _ser_digests(self.prev_digests),
+            "prev_batch_tail": (
+                None if tail is None else [tail[0], [h.hex() for h in sorted(tail[1])]]
+            ),
+            "num_processes": self.num_processes,
+            "process_id": self.process_id,
+            "n_global": self.n_global,
+            "scan_windows": self.scan_windows,
+            "window": self.window,
+            "has_carry": self.carry_local is not None,
+        }
+        carry = b"" if self.carry_local is None else np.ascontiguousarray(
+            self.carry_local, "<u2").tobytes()
+        _save_pair(f"{path}.p{self.process_id}", ".carry.bin", carry, meta)
+
+    @classmethod
+    def load(cls, path: str, process_id: int) -> "MultiHostCheckpoint":
+        base = f"{path}.p{process_id}"
+        with open(base + ".meta.json") as f:
+            meta = json.load(f)
+        data = b""
+        if meta.get("has_carry") or "carry_sha256" in meta:
+            # (the JAX package writes no carry file at the stream head)
+            meta, _, data = _read_pair(base, ".carry.bin")
+        if meta.get("kind") != "multihost":
+            raise ValueError(f"checkpoint {path}.p{process_id}: kind {meta.get('kind')!r}, "
+                             "not a multi-host file set")
+        tail = meta["prev_batch_tail"]
+        return cls(
+            byte_offset=meta["byte_offset"],
+            window_index=meta["window_index"],
+            first=meta["first"],
+            last_block=meta["last_block"],
+            carry_local=(np.frombuffer(data, "<u2").astype(np.uint16)
+                         if meta["has_carry"] else None),
+            prev_digests=_de_digests(meta["prev_digests"]),
+            prev_batch_tail=(None if tail is None
+                             else (tail[0], [bytes.fromhex(h) for h in tail[1]])),
+            num_processes=meta["num_processes"],
+            process_id=meta["process_id"],
+            n_global=meta["n_global"],
+            scan_windows=meta["scan_windows"],
+            window=meta["window"],
+        )
+
+
 def checkpoint_exists(path: str) -> bool:
     """True when ``path`` names a checkpoint file set of any kind, the JAX
     package's per-process multi-host sets (``path.pN.meta.json``) included,
@@ -254,8 +338,11 @@ def checkpoint_exists(path: str) -> bool:
     )
 
 
-def remove_checkpoint(path: str) -> None:
-    """Delete the single-card checkpoint file set at ``path``, if any."""
+def remove_checkpoint(path: str, process_id: Optional[int] = None) -> None:
+    """Delete the checkpoint file set at ``path``, if any: a single-card
+    one, or with ``process_id`` that process's multi-host set."""
+    if process_id is not None:
+        path = f"{path}.p{process_id}"
     for suffix in (".meta.json", ".carry.bin", ".carry.npz"):
         _remove(path + suffix)
         _remove(path + suffix + ".prev")
@@ -263,15 +350,18 @@ def remove_checkpoint(path: str) -> None:
 
 def load_checkpoint(path: str):
     """Load whichever single-card checkpoint kind ``path`` holds."""
+    multihost = ("a multi-host decoder's per-process file set: resume it with -coordinator "
+                 "(MultiHostCheckpoint.load(path, process_id))")
     if not os.path.exists(path + ".meta.json") and checkpoint_exists(path):
-        raise ValueError(f"checkpoint {path}: a multi-host file set; {MULTI_GPU}")
+        raise ValueError(f"checkpoint {path}: {multihost}")
     with open(path + ".meta.json") as f:
         kind = json.load(f).get("kind", "window")
     if kind == "wideband":
         return WidebandCheckpoint.load(path)
     if kind == "window":
         return Checkpoint.load(path)
-    raise ValueError(f"checkpoint {path}: kind {kind!r}; {MULTI_GPU}")
+    raise ValueError(f"checkpoint {path}: kind {kind!r}, "
+                     + (multihost if kind == "multihost" else "unknown"))
 
 
 def _require_boundary(dec) -> None:
@@ -289,17 +379,23 @@ def _require_boundary(dec) -> None:
 
 def capture_checkpoint(dec, byte_offset: int):
     """Snapshot a decoder at a window boundary (no pending bytes, nothing
-    in flight); ``byte_offset`` is the capture bytes it has consumed."""
+    in flight); ``byte_offset`` is the capture bytes it has consumed (for a
+    multi-host decoder, the global stream's)."""
+    if isinstance(dec, MultiHostDecoder):
+        return _capture_multihost(dec, byte_offset)
     _require_boundary(dec)
     state = dec.export_state()
     if isinstance(dec, WidebandDecoder):
         chans = state["channels"]
+        tail = state["chan_tail"]
+        if isinstance(dec, WidebandMeshDecoder):
+            tail = tail[:, dec.spec.pad_shift :]  # the JAX wideband mesh's (N, halo)
         return WidebandCheckpoint(
             byte_offset=byte_offset,
             window_index=state["window_index"],
             first=state["first"],
             wb_hist=state["wb_hist"],
-            chan_tail=state["chan_tail"],
+            chan_tail=np.ascontiguousarray(tail),
             chan_last_block=[c["last_block"] for c in chans],
             chan_prev_digests=[[tuple(d) for d in c["dedup_prev"]] for c in chans],
             xchan_seen=state["xchan_seen"],
@@ -321,6 +417,58 @@ def capture_checkpoint(dec, byte_offset: int):
     raise TypeError(f"capture_checkpoint: no checkpoint kind for {type(dec).__name__}")
 
 
+def _capture_multihost(dec: MultiHostDecoder, byte_offset: int) -> MultiHostCheckpoint:
+    state = dec.export_state()
+    carry = None
+    if not state["first"]:
+        carry = np.zeros((dec.n_local, dec.spec.halo), np.uint16)
+        if dec.process_id == 0:
+            carry[0] = state["carry"][dec.spec.pad_shift :]  # the stream tail
+    tail = state["prev_batch_tail"]
+    return MultiHostCheckpoint(
+        byte_offset=byte_offset,
+        window_index=state["window_index"],
+        first=state["first"],
+        last_block=state["last_block"],
+        carry_local=carry,
+        prev_digests=[tuple(d) for d in state["dedup_prev"]],
+        prev_batch_tail=None if tail is None else (tail[0], sorted(tail[1])),
+        num_processes=dec.num_processes,
+        process_id=dec.process_id,
+        n_global=dec.n_global,
+        scan_windows=dec.scan_windows,
+        window=dec.spec.window,
+    )
+
+
+def _restore_multihost(dec: MultiHostDecoder, ckpt: MultiHostCheckpoint) -> None:
+    got = (ckpt.num_processes, ckpt.n_global, ckpt.process_id, ckpt.scan_windows, ckpt.window)
+    want = (dec.num_processes, dec.n_global, dec.process_id, dec.scan_windows, dec.spec.window)
+    if got != want:
+        raise ValueError(
+            f"checkpoint topology mismatch: saved for {got[0]} procs x {got[1]} devices "
+            f"(proc {got[2]}, K={got[3]}, window={got[4]}), decoder is {want[0]} x {want[1]} "
+            f"(proc {want[2]}, K={want[3]}, window={want[4]})")
+    halo, hs = dec.spec.halo, dec.spec.halo_staged
+    # Row 0 is process 0's stream tail (other processes receive theirs);
+    # the pad_shift samples before the halo are read by no stencil.
+    carry = np.zeros(hs, np.uint16)
+    if ckpt.carry_local is not None:
+        rows = np.asarray(ckpt.carry_local, np.uint16)
+        if rows.size != dec.n_local * halo:
+            raise _geometry("carry", rows.shape, (dec.n_local, halo), "different message types?")
+        if dec.process_id == 0:
+            carry[hs - halo :] = rows.reshape(-1, halo)[0]
+    dec.load_state({
+        "window_index": ckpt.window_index,
+        "first": ckpt.first,
+        "carry": carry,
+        "last_block": ckpt.last_block,
+        "dedup_prev": ckpt.prev_digests,
+        "prev_batch_tail": ckpt.prev_batch_tail,
+    })
+
+
 def _geometry(what: str, got, want, hint: str) -> ValueError:
     """The refusal of a carry of shape ``got`` where ``want`` is needed."""
     return ValueError(
@@ -330,7 +478,13 @@ def _geometry(what: str, got, want, hint: str) -> ValueError:
 
 def restore_checkpoint(dec, ckpt) -> None:
     """Restore a decoder to a checkpoint; decode continues bit-identically.
-    Refuses a checkpoint of another kind or geometry."""
+    Refuses a checkpoint of another kind, geometry or topology."""
+    if isinstance(dec, MultiHostDecoder) != isinstance(ckpt, MultiHostCheckpoint):
+        raise ValueError(f"checkpoint kind mismatch: {type(ckpt).__name__} cannot "
+                         f"restore a {type(dec).__name__}")
+    if isinstance(dec, MultiHostDecoder):
+        _restore_multihost(dec, ckpt)
+        return
     wide = isinstance(dec, WidebandDecoder)
     if not isinstance(dec, (WindowDecoder, WidebandDecoder)) or isinstance(
         ckpt, WidebandCheckpoint
@@ -371,9 +525,16 @@ def restore_checkpoint(dec, ckpt) -> None:
         return
     n, p = dec.n_channels, dec.chspec.history_frames
     tail = np.asarray(ckpt.chan_tail)
-    if tail.shape != (n, hs):
-        hint = (f"a JAX wideband-mesh decoder's tail; {MULTI_GPU}" if tail.shape == (n, halo)
-                else "different -channels or message types?")
+    if isinstance(dec, WidebandMeshDecoder):
+        if tail.shape != (n, halo):
+            hint = ("a single-card wideband decoder's tail; resume it without -mesh"
+                    if tail.shape == (n, hs) else "different -channels or message types?")
+            raise _geometry("chan_tail", tail.shape, (n, halo), hint)
+        # The pad_shift samples before the halo are read by no stencil.
+        tail = np.concatenate([np.zeros((n, hs - halo), np.uint16), tail], axis=1)
+    elif tail.shape != (n, hs):
+        hint = ("a wideband-mesh decoder's tail: resume it with -channels and -mesh"
+                if tail.shape == (n, halo) else "different -channels or message types?")
         raise _geometry("chan_tail", tail.shape, (n, hs), hint)
     if len(ckpt.chan_last_block) != n or len(ckpt.chan_prev_digests) != n:
         raise ValueError(

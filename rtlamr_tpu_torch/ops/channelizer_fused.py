@@ -1,10 +1,14 @@
 """The fused channelizer: wideband u16 chunk -> (N, F) staged u16 channels.
 
+A launch may write a block of the channel rows only, ``channel_start`` to
+``channel_start + channel_count`` (the wideband mesh's channel shards, each
+mixing its own rows): the same bytes as those rows of the full launch.
+
 :func:`channelize_requantize_fused` is the entry point. On a CUDA tensor it
 launches the hand-written kernel ``csrc/channelizer.cu`` (or raises); on a
 CPU tensor it runs :func:`channelize_requantize_plain`, the same function in
-plain PyTorch: ``requantize_u16(channelize(spec, hist, frames))`` of
-``ops/channelizer.py``.
+plain PyTorch: ``requantize_u16(mix_channels(spec, polyphase_branches(spec,
+hist, frames), c0, rows))`` of ``ops/channelizer.py``.
 
 Inputs keep the stream where it lies, frame-major: ``wb`` is the u16 view of
 F wideband frames (element m*N + j is frame m of plane j, one interleaved
@@ -31,12 +35,13 @@ from .build import Library, load
 from .channelizer import (
     MAX_CHANNELS,
     ChannelizerSpec,
-    channelize,
+    mix_channels,
     planes_u16_to_frames,
+    polyphase_branches,
     requantize_u16,
     taps_f32,
 )
-from .channelizer_mix import mix_header
+from .channelizer_mix import channel_block, mix_header
 
 
 def _frames_of(spec: ChannelizerSpec, u16: torch.Tensor) -> torch.Tensor:
@@ -45,17 +50,20 @@ def _frames_of(spec: ChannelizerSpec, u16: torch.Tensor) -> torch.Tensor:
 
 
 def channelize_requantize_plain(
-    spec: ChannelizerSpec, hist: torch.Tensor, wb: torch.Tensor, first: bool
+    spec: ChannelizerSpec, hist: torch.Tensor, wb: torch.Tensor, first: bool,
+    channel_start: int = 0, channel_count: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch K2: (F*N,) u16 chunk and (P*N,) u16 history -> (N, F)
-    u16 channel samples."""
+    """Plain PyTorch K2: (F*N,) u16 chunk and (P*N,) u16 history -> (C, F)
+    u16 samples of the channels ``[channel_start, channel_start + C)`` (C =
+    ``channel_count``, all N by default)."""
+    c0, rows = channel_block(spec.n_channels, channel_start, channel_count)
     frames = _frames_of(spec, wb)
     if first:
         n, p = spec.n_channels, spec.history_frames
         hist_f = torch.zeros((2, n, p), dtype=torch.float32, device=wb.device)
     else:
         hist_f = _frames_of(spec, hist)
-    return requantize_u16(channelize(spec, hist_f, frames))
+    return requantize_u16(mix_channels(spec, polyphase_branches(spec, hist_f, frames), c0, rows))
 
 
 #: the kernel's CTA size and the taps count it compiles in (csrc/channelizer.cu)
@@ -109,6 +117,7 @@ class _Args(ctypes.Structure):
         ("tile", ctypes.c_int),
         ("vec_in", ctypes.c_int),
         ("vec_out", ctypes.c_int),
+        ("rows", ctypes.c_int),
         ("taps", ctypes.c_float * (FIXED_TAPS * MAX_CHANNELS)),
     ]
 
@@ -129,18 +138,25 @@ def _tables(spec: ChannelizerSpec, device: torch.device) -> Tuple[_Args, torch.T
     return args, torch.from_numpy(taps).to(device)
 
 
-def kernel_library(n: int, fixed_taps: bool) -> Library:
-    """The library of ``channelize_kernel<n, P>``, P = FIXED_TAPS with the
-    taps compiled in or 0 for the runtime tap loop, with the mix of ``n``
-    channels as its generated header; built on first use, one ``nvcc``."""
+def kernel_library(n: int, fixed_taps: bool, c0: int = 0, rows: Optional[int] = None) -> Library:
+    """The library of ``channelize_kernel<n, rows, P>``, P = FIXED_TAPS
+    with the taps compiled in or 0 for the runtime tap loop, with the mix of
+    the channel rows ``[c0, c0 + rows)`` of ``n`` (all of them by default)
+    as its generated header; built on first use, one ``nvcc``. The full
+    block is ``channelizer.n<n>p<P>``, a part ``channelizer.n<n>c<c0>x<rows>p<P>``."""
     taps = FIXED_TAPS if fixed_taps else 0
-    return Library(f"channelizer.n{n}p{taps}", (f"-DRTLAMR_K2_N={n}", f"-DRTLAMR_K2_P={taps}"),
-                   ("channelizer_mix.cuh", mix_header(n)))
+    c0, rows = channel_block(n, c0, rows)
+    flags = (f"-DRTLAMR_K2_N={n}", f"-DRTLAMR_K2_P={taps}")
+    name = f"channelizer.n{n}p{taps}"
+    if rows != n:
+        flags += (f"-DRTLAMR_K2_C0={c0}", f"-DRTLAMR_K2_ROWS={rows}")
+        name = f"channelizer.n{n}c{c0}x{rows}p{taps}"
+    return Library(name, flags, ("channelizer_mix.cuh", mix_header(n, c0, rows)))
 
 
 @functools.lru_cache(maxsize=None)
-def _launch_fn(n: int, fixed_taps: bool):
-    fn = load(kernel_library(n, fixed_taps)).rtlamr_channelize
+def _launch_fn(n: int, fixed_taps: bool, c0: int, rows: int):
+    fn = load(kernel_library(n, fixed_taps, c0, rows)).rtlamr_channelize
     if fn.argtypes is None:
         vp = ctypes.c_void_p
         fn.argtypes = [vp, vp, vp, vp, ctypes.POINTER(_Args), vp]
@@ -149,14 +165,17 @@ def _launch_fn(n: int, fixed_taps: bool):
 
 
 def _launch(spec: ChannelizerSpec, hist: torch.Tensor, wb: torch.Tensor, first: bool,
-            out: torch.Tensor, fixed_taps: bool) -> None:
+            out: torch.Tensor, fixed_taps: bool, c0: int = 0) -> None:
     """One launch on checked CUDA tensors, with the taps compiled in
-    (``fixed_taps``, P = FIXED_TAPS only) or through the runtime tap loop."""
+    (``fixed_taps``, P = FIXED_TAPS only) or through the runtime tap loop,
+    writing the ``out.shape[0]`` channel rows from ``c0``."""
     dev = wb.device
-    fn = _launch_fn(spec.n_channels, fixed_taps)
+    rows = out.shape[0]
+    fn = _launch_fn(spec.n_channels, fixed_taps, c0, rows)
     template, taps = _tables(spec, dev)
     args = _Args.from_buffer_copy(template)
     args.frames, args.out_stride, args.first = out.shape[1], out.stride(0), int(bool(first))
+    args.rows = rows
     with torch.cuda.device(dev):
         rc = fn(
             wb.data_ptr(),
@@ -176,10 +195,14 @@ def channelize_requantize_fused(
     wb: torch.Tensor,
     first: bool,
     out: Optional[torch.Tensor] = None,
+    channel_start: int = 0,
+    channel_count: Optional[int] = None,
 ) -> torch.Tensor:
-    """K2 over a (F*N,) u16 chunk; returns the (N, F) u16 channels.
+    """K2 over a (F*N,) u16 chunk; returns the (C, F) u16 channels
+    ``[channel_start, channel_start + C)``, C = ``channel_count`` (all N by
+    default).
 
-    ``out``, when given, is an (N, F) u16 view with unit column stride (for
+    ``out``, when given, is a (C, F) u16 view with unit column stride (for
     example the staged batch's columns behind each channel's halo); the
     result is written there and ``out`` is returned. A CPU tensor goes to
     :func:`channelize_requantize_plain`. A CUDA tensor launches the CUDA
@@ -188,18 +211,19 @@ def channelize_requantize_fused(
     a shape, type, device or layout the kernel does not take, raises.
     """
     n, p = spec.n_channels, spec.history_frames
+    c0, rows = channel_block(n, channel_start, channel_count)
     if wb.dim() != 1 or wb.shape[0] % n:
         raise ValueError(f"channelizer: want a 1-D chunk of whole frames of {n}, got {tuple(wb.shape)}")
     frames = wb.shape[0] // n
     if out is not None and (
-        tuple(out.shape) != (n, frames) or out.dtype != torch.uint16 or out.stride(1) != 1
+        tuple(out.shape) != (rows, frames) or out.dtype != torch.uint16 or out.stride(1) != 1
     ):
         raise ValueError(
-            f"channelizer: out must be ({n}, {frames}) uint16 with unit column "
+            f"channelizer: out must be ({rows}, {frames}) uint16 with unit column "
             f"stride, got {tuple(out.shape)} {out.dtype} strides {out.stride()}"
         )
     if wb.device.type == "cpu":
-        res = channelize_requantize_plain(spec, hist, wb, first)
+        res = channelize_requantize_plain(spec, hist, wb, first, c0, rows)
         if out is None:
             return res
         out.copy_(res)
@@ -217,8 +241,8 @@ def channelize_requantize_fused(
     if hist.device != dev or (out is not None and out.device != dev):
         raise ValueError("channelizer: chunk, history and out must be on one device")
     if out is None:
-        out = torch.empty((n, frames), dtype=torch.uint16, device=dev)
-    _launch(spec, hist, wb, first, out, fixed_taps=p == FIXED_TAPS)
+        out = torch.empty((rows, frames), dtype=torch.uint16, device=dev)
+    _launch(spec, hist, wb, first, out, fixed_taps=p == FIXED_TAPS, c0=c0)
     channelize_requantize_fused.launches += 1
     return out
 

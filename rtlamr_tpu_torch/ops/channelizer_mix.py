@@ -27,13 +27,22 @@ sign (q(+0) = q(-0)). The kernel drops each branch's ``0 +`` the same way.
 own, as the card does); :func:`mix_header` writes it as the C++ that the
 CUDA kernel ``csrc/channelizer.cu`` compiles for one N, with the
 coefficients as exact float literals.
+
+Each takes a block of channel rows ``[c0, c0 + rows)`` (all N by default),
+as the wideband mesh's channel shards mix only their own rows
+(``parallel/wideband_mesh.py``; the JAX package's ``mix_channels(spec, y,
+channel_start, channel_count)``). A block keeps the accumulations of its
+channels in the full program's order, and the products they use, with the
+accumulators numbered from 0 at ``c0``; every row is the same operations on
+the same values as in the full program, so a block's bytes are those rows'
+bytes.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -71,53 +80,72 @@ def _flip(sign: str) -> str:
     return "-" if sign == "+" else "+"
 
 
+def channel_block(n: int, c0: int = 0, rows: Optional[int] = None) -> Tuple[int, int]:
+    """``(c0, rows)`` of a block of the ``n`` channel rows; ``rows`` None is
+    every row from ``c0``. Raises on a block outside ``[0, n)``."""
+    rows = n - c0 if rows is None else rows
+    if not (0 <= c0 and 1 <= rows and c0 + rows <= n):
+        raise ValueError(f"channel block [{c0}, {c0 + rows}) is not inside [0, {n})")
+    return c0, rows
+
+
 @functools.lru_cache(maxsize=None)
-def mix_program(n: int) -> Tuple[MixBranch, ...]:
-    """The mix of ``n`` channels as one :class:`MixBranch` per branch."""
+def mix_program(n: int, c0: int = 0, rows: Optional[int] = None) -> Tuple[MixBranch, ...]:
+    """The mix of channels ``[c0, c0 + rows)`` of ``n`` (all by default) as
+    one :class:`MixBranch` per branch, accumulators numbered ``c - c0``."""
+    c0, rows = channel_block(n, c0, rows)
     er, ei = _mix_matrix(ChannelizerSpec(n_channels=n))
     out = []
     for b in range(n):
         mags: Dict[float, int] = {}
         ops = []
-        for c in range(n):
+        for c in range(c0, c0 + rows):
             # cr = (cr + er yr) - ei yi
             t = _term(er[c, b], mags, "r")
             if t:
-                ops.append(("cr", c, t[0], t[1]))
+                ops.append(("cr", c - c0, t[0], t[1]))
             t = _term(ei[c, b], mags, "i")
             if t:
-                ops.append(("cr", c, _flip(t[0]), t[1]))
+                ops.append(("cr", c - c0, _flip(t[0]), t[1]))
             # ci = (ci + er yi) + ei yr
             t = _term(er[c, b], mags, "i")
             if t:
-                ops.append(("ci", c, t[0], t[1]))
+                ops.append(("ci", c - c0, t[0], t[1]))
             t = _term(ei[c, b], mags, "r")
             if t:
-                ops.append(("ci", c, t[0], t[1]))
+                ops.append(("ci", c - c0, t[0], t[1]))
         if b == 0:
-            assert all(sign == "+" and operand in ("yr", "yi") for _, _, sign, operand in ops)
+            # Branch 0's coefficients are er = 1, ei = 0 in every row: each
+            # accumulator of the block starts with one copy of yr_0 or yi_0.
+            assert sorted((name, c, sign, operand) for name, c, sign, operand in ops) == sorted(
+                (name, c, "+", "y" + name[1]) for name in ("cr", "ci") for c in range(rows))
             ops = [(name, c, "=", operand) for name, c, _, operand in ops]
         products = tuple(sorted(mags, key=mags.get))
         out.append(MixBranch(products=products, ops=tuple(ops)))
     return tuple(out)
 
 
-def mix_op_count(n: int) -> Tuple[int, int]:
-    """(products, sums) a frame of the cheapest exact mix of ``n`` channels:
-    two products (times yr and yi) for each distinct magnitude of a branch,
-    one sum for each accumulation but the copies that start them."""
-    prog = mix_program(n)
+def mix_op_count(n: int, c0: int = 0, rows: Optional[int] = None) -> Tuple[int, int]:
+    """(products, sums) a frame of the cheapest exact mix of channels
+    ``[c0, c0 + rows)`` of ``n``: two products (times yr and yi) for each
+    distinct magnitude of a branch, one sum for each accumulation but the
+    copies that start them."""
+    prog = mix_program(n, c0, rows)
     return (sum(2 * len(br.products) for br in prog),
             sum(sign != "=" for br in prog for _, _, sign, _ in br.ops))
 
 
-def emulate_mix(n: int, yr: np.ndarray, yi: np.ndarray) -> np.ndarray:
+def emulate_mix(n: int, yr: np.ndarray, yi: np.ndarray, c0: int = 0,
+                rows: Optional[int] = None) -> np.ndarray:
     """Run :func:`mix_program` in numpy float32 on (N, F) branch outputs;
-    returns the (2, N, F) channels, as ``mix_channels`` would."""
+    returns the (2, rows, F) channels ``[c0, c0 + rows)``, as
+    ``mix_channels(spec, y, c0, rows)`` would."""
+    c0, rows = channel_block(n, c0, rows)
     yr = np.asarray(yr, np.float32)
     yi = np.asarray(yi, np.float32)
-    acc = {"cr": np.empty(yr.shape, np.float32), "ci": np.empty(yr.shape, np.float32)}
-    for b, br in enumerate(mix_program(n)):
+    shape = (rows, yr.shape[1])
+    acc = {"cr": np.empty(shape, np.float32), "ci": np.empty(shape, np.float32)}
+    for b, br in enumerate(mix_program(n, c0, rows)):
         vals = {"yr": yr[b], "yi": yi[b]}
         for k, a in enumerate(br.products):
             vals[("pr", k)] = np.float32(a) * yr[b]
@@ -146,22 +174,25 @@ MACROS = {"=": "MIX_SET", "+": "MIX_ADD", "-": "MIX_SUB"}
 
 
 @functools.lru_cache(maxsize=None)
-def mix_header(n: int) -> str:
-    """C++ of ``Mix<n>::branch<T>(b, yr, yi, cr, ci)``: branch b's products
-    and accumulations over T frames. The kernel unrolls b, so the switch
-    folds to one case. Uses the MIX_MUL, MIX_SET, MIX_ADD and MIX_SUB macros
-    of ``csrc/channelizer.cu``."""
+def mix_header(n: int, c0: int = 0, rows: Optional[int] = None) -> str:
+    """C++ of ``Mix<n>::branch<T>(b, yr, yi, cr, ci)`` for the rows ``[c0,
+    c0 + rows)`` (``Mix<n>::kStart`` and ``kRows``): branch b's products and
+    accumulations over T frames. The kernel unrolls b, so the switch folds
+    to one case. Uses the MIX_MUL, MIX_SET, MIX_ADD and MIX_SUB macros of
+    ``csrc/channelizer.cu``."""
+    c0, rows = channel_block(n, c0, rows)
     lines = [
         "// Generated by rtlamr_tpu_torch/ops/channelizer_mix.py mix_header from",
         "// the float32 tables of ops/channelizer.py _mix_matrix. Do not edit.",
         "template <int N> struct Mix;",
         f"template <> struct Mix<{n}> {{",
+        f"  static constexpr int kStart = {c0}, kRows = {rows};",
         "  template <int T>",
         "  static __device__ __forceinline__ void branch(const int b, const float (&yr)[T],",
-        f"      const float (&yi)[T], float (&cr)[{n}][T], float (&ci)[{n}][T]) {{",
+        f"      const float (&yi)[T], float (&cr)[{rows}][T], float (&ci)[{rows}][T]) {{",
         "    switch (b) {",
     ]
-    for b, br in enumerate(mix_program(n)):
+    for b, br in enumerate(mix_program(n, c0, rows)):
         lines.append(f"      case {b}: {{")
         for k, a in enumerate(br.products):
             lines.append(f"        float pr{k}[T], pi{k}[T];")

@@ -18,10 +18,11 @@ neighbour's samples live on another host. Here one process holds every byte
 of the super-batch, so every window's halo is staged on the host, as the
 K-window batch stages them, and the carry between super-batches is the
 stream tail on the host, as in :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`.
-A device-to-device exchange comes with the multi-host decoder. So each
-window's staged buffer is the one ``WindowDecoder`` would build, the
-messages are the same, and an overflowed window is escalated with its full
-halo from its device copy.
+Across processes the multi-host decoder (``parallel/distributed.py``) sends
+each segment's tail to the next process over gloo, also host data, and
+stages the same way. So each window's staged buffer is the one
+``WindowDecoder`` would build, the messages are the same, and an
+overflowed window is escalated with its full halo from its device copy.
 
 A device may repeat in ``devices`` (``["cpu"] * 4``, ``["cuda:0"] * 2``):
 its shards then run one after another on it.
@@ -104,12 +105,7 @@ class MeshDecoder(WindowDecoder):
         backend: str = "jnp",
         scan_windows: int = 2,
     ):
-        if devices is None:
-            resolve_device(None)  # raises without a card
-            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-        self.devices = [_indexed(resolve_device(d)) for d in devices]
-        if not self.devices or len({d.type for d in self.devices}) != 1:
-            raise ValueError(f"MeshDecoder: want one or more devices of one type, got {devices}")
+        self.devices = resolve_devices(devices, "MeshDecoder")
         if scan_windows < 1:
             raise ValueError(f"MeshDecoder: scan_windows {scan_windows} < 1")
         self.n_devices = len(self.devices)
@@ -126,6 +122,26 @@ class MeshDecoder(WindowDecoder):
     @property
     def window_bytes(self) -> int:  # feed() granularity: one super-batch
         return 2 * self.spec.window * self.n_devices * self.scan_windows
+
+    @property
+    def in_flight(self) -> bool:
+        """Whether a dispatched super-batch awaits completion."""
+        return self._inflight is not None
+
+    def decode_segment(
+        self, super_bytes: np.ndarray, valid_blocks: Optional[int], carry: np.ndarray,
+        first: bool, window_index: int,
+    ) -> List[Tuple[int, Message]]:
+        """Dispatch one super-batch that is a segment of a longer stream and
+        complete the previous one, as :meth:`feed` does: ``carry`` is the
+        (halo_staged,) u16 stream samples before the segment, ``first``
+        whether it starts the stream, ``window_index`` the stream index of
+        its first window. The multi-host decoder decodes each process's
+        segment with it."""
+        self._carry = np.asarray(carry, np.uint16)
+        self._first = first
+        self._window_index = window_index
+        return self._process_window(super_bytes, valid_blocks)
 
     def _process_window(
         self, super_bytes: np.ndarray, valid_blocks: Optional[int] = None
@@ -185,6 +201,20 @@ def _indexed(dev: torch.device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def resolve_devices(devices: Optional[Sequence[DeviceLike]], who: str) -> List[torch.device]:
+    """A decoder's device list: ``None`` is every visible card, and raises
+    when there is none (no decoder moves to the CPU on its own); otherwise
+    one or more devices of one type, each ``cuda`` made ``cuda:<index>``. A
+    device may repeat."""
+    if devices is None:
+        resolve_device(None)  # raises without a card
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    out = [_indexed(resolve_device(d)) for d in devices]
+    if not out or len({d.type for d in out}) != 1:
+        raise ValueError(f"{who}: want one or more devices of one type, got {devices}")
+    return out
 
 
 def dryrun(n_devices: int, window_blocks: Optional[int] = None,

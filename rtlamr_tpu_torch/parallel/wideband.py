@@ -222,7 +222,7 @@ class WidebandDecoder:
             hist = np.stack([(v & 255), (v >> 8)]).astype(np.float32) - np.float32(127.5)
         return {
             "wb_hist": hist,
-            "chan_tail": self._chan_tail.cpu().numpy().copy(),
+            "chan_tail": self._tail_rows(),
             "first": bool(self._first),
             "window_index": int(self._window_index),
             "channels": [c.export_state() for c in self._chan],
@@ -247,6 +247,7 @@ class WidebandDecoder:
                 f"{len(channels)} channels; want (2, {n}, {p}), ({n}, {hs}), {n}"
             )
         first = bool(state["first"])
+        packed = None
         if not first:
             # The history holds u8-derived samples minus 127.5: exact in f32.
             u = hist.astype(np.float64) + 127.5
@@ -254,14 +255,25 @@ class WidebandDecoder:
             if not (np.array_equal(iu, u) and iu.min() >= 0 and iu.max() <= 255):
                 raise ValueError("load_state: wb_hist is not a u8-derived frame tail")
             packed = (iu[0] | (iu[1] << 8)).T.reshape(-1).astype(np.uint16)
-            self._wb_hist = torch.from_numpy(packed).to(self.device)
-        self._chan_tail = torch.from_numpy(tail.copy()).to(self.device)
+        self._load_carries(packed, tail.copy())
         self._first = first
         self._window_index = int(state["window_index"])
         for c, st in zip(self._chan, channels):
             c.load_state(st)
         self._xchan.seen = {Digest(*d): (b, c) for d, b, c in state.get("xchan_seen", ())}
         self._pending = np.array(state.get("pending", ()), np.uint8)
+
+    def _tail_rows(self) -> np.ndarray:
+        """The carried (N, halo_staged) channel tails, on the host."""
+        return self._chan_tail.cpu().numpy().copy()
+
+    def _load_carries(self, hist: Optional[np.ndarray], tail: np.ndarray) -> None:
+        """Put the carried (P * N,) u16 frame tail (None: the stream head's,
+        left as it is) and the (N, halo_staged) channel tails where the next
+        super-step reads them."""
+        if hist is not None:
+            self._wb_hist = torch.from_numpy(hist).to(self.device)
+        self._chan_tail = torch.from_numpy(tail).to(self.device)
 
     # -- streaming ------------------------------------------------------------
 

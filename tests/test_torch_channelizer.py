@@ -148,6 +148,64 @@ def test_mix_channels_block_equals_full():
         assert torch.equal(tc.mix_channels(spec, y, c0, cnt), full[:, c0 : c0 + cnt])
 
 
+def channel_blocks(n):
+    """Every block (c0, rows) of n channels with rows dividing n: the
+    channel shards of a wideband mesh with n // rows channel shards."""
+    return [(n, c0, rows) for rows in range(1, n + 1) if n % rows == 0
+            for c0 in range(0, n, rows)]
+
+
+BLOCKS = channel_blocks(4) + channel_blocks(12)
+
+
+@pytest.mark.parametrize("n,c0,rows", BLOCKS, ids=[f"n{n}-{c0}+{r}" for n, c0, r in BLOCKS])
+def test_channel_block(n, c0, rows):
+    """A block of channel rows, as a wideband mesh's channel shard mixes
+    it: the generated mix program of the block, emulated, equals the same
+    rows of the full program exactly (zeros among the branch outputs); the
+    plain K2 of the block equals those rows of the full plain K2 exactly,
+    and the JAX ``mix_channels(..., channel_start, channel_count)`` within
+    the reference's 1e-4 / one LSB contract."""
+    from rtlamr_tpu_torch.ops.channelizer_mix import emulate_mix
+
+    ref = jax_ref()
+    rng = np.random.default_rng(n * 100 + c0 * 10 + rows)
+    y = rng.normal(scale=60.0, size=(2, n, 1000)).astype(np.float32)
+    y[:, :, :20] = 0.0
+    y[:, :, 20:40] = -0.0
+    full = emulate_mix(n, y[0], y[1])
+    blk = emulate_mix(n, y[0], y[1], c0, rows)
+    assert blk.shape == (2, rows, 1000)
+    assert np.array_equal(blk.view(np.uint32), full[:, c0 : c0 + rows].view(np.uint32))
+
+    ts, js = tc.ChannelizerSpec(n_channels=n), ref.ch.ChannelizerSpec(n_channels=n)
+    p, f = ts.history_frames, 2048
+    u16 = torch.from_numpy(random_wideband(n, p + f, seed=n + 7 * c0 + rows).view(np.uint16).copy())
+    hist, wb = u16[: p * n], u16[p * n :]
+    for first in (True, False):
+        got = channelize_requantize_fused(ts, hist, wb, first, channel_start=c0,
+                                          channel_count=rows)
+        want = channelize_requantize_plain(ts, hist, wb, first)[c0 : c0 + rows]
+        assert torch.equal(got, want)
+    frames = tc.iq_bytes_to_frames(ts, wb)
+    jy = ref.ch.polyphase_branches(js, ref.jnp.asarray(tc.iq_bytes_to_frames(ts, hist).numpy()),
+                                   ref.jnp.asarray(frames.numpy()))
+    assert_requant_parity(got.numpy(), ref.ch.requantize_u16(ref.ch.mix_channels(js, jy, c0, rows)))
+
+
+def test_channel_block_refusals():
+    spec = tc.ChannelizerSpec(n_channels=4)
+    u16 = torch.zeros(4 * 64, dtype=torch.uint16)
+    hist = torch.zeros(4 * spec.history_frames, dtype=torch.uint16)
+    for c0, rows in ((3, 2), (-1, 2), (0, 0), (4, 1)):
+        with pytest.raises(ValueError, match="channel block"):
+            channelize_requantize_fused(spec, hist, u16, True, channel_start=c0,
+                                        channel_count=rows)
+    with pytest.raises(ValueError, match=r"out must be \(2, 64\)"):
+        channelize_requantize_fused(spec, hist, u16, True, out=torch.zeros((4, 64),
+                                    dtype=torch.uint16), channel_start=2, channel_count=2)
+
+
 def test_channelizer_tone_selectivity():
     """A tone at channel c's center lands on channel c at unity gain and is
     strongly rejected everywhere else."""

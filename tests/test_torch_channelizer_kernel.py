@@ -35,6 +35,7 @@ from rtlamr_tpu_torch.ops import channelizer as tc
 from rtlamr_tpu_torch.ops.channelizer_fused import (
     FIXED_TAPS,
     THREADS,
+    channelize_requantize_fused,
     channelize_requantize_plain,
     channelizer_plan,
     kernel_library,
@@ -297,3 +298,85 @@ def test_every_channel_count_is_built_once():
         assert lib.header == ("channelizer_mix.cuh", mix_header(n))
     assert len({build._target(lib) for lib in libs}) == len({lib.name for lib in libs}) == 64
     assert build._target(build.Library("decode_stencil")).name.startswith("decode_stencil-")
+
+
+# ---------------------------------------------------------------------------
+# A block of channel rows (the wideband mesh's channel shards)
+
+MESH_BLOCKS = [(12, 0, 6), (12, 6, 6), (12, 3, 3), (4, 1, 1), (4, 2, 2)]
+
+
+@pytest.mark.parametrize("n,c0,rows", MESH_BLOCKS)
+def test_block_header_and_library(n, c0, rows):
+    """A block's header, read back, is the block's mix program, named as
+    its block; its library is its own build target beside the full one,
+    with the block in its -D flags; the full block keeps the full
+    library's name and flags."""
+    text = mix_header(n, c0, rows)
+    assert f"static constexpr int kStart = {c0}, kRows = {rows};" in text
+    assert f"float (&cr)[{rows}][T], float (&ci)[{rows}][T]" in text
+    cases = re.findall(r"      case (\d+): \{\n(.*?)\n      \} break;", text, re.S)
+    prog = mix_program(n, c0, rows)
+    assert [int(b) for b, _ in cases] == list(range(n)) == list(range(len(prog)))
+    for (_, case), br in zip(cases, prog):
+        assert read_header_case(case) == (br.products, br.ops)
+        assert {c for _, c, _, _ in br.ops} <= set(range(rows))
+    lib = kernel_library(n, True, c0, rows)
+    assert lib.name == f"channelizer.n{n}c{c0}x{rows}p{FIXED_TAPS}"
+    assert lib.flags == (f"-DRTLAMR_K2_N={n}", f"-DRTLAMR_K2_P={FIXED_TAPS}",
+                         f"-DRTLAMR_K2_C0={c0}", f"-DRTLAMR_K2_ROWS={rows}")
+    assert lib.header == ("channelizer_mix.cuh", text)
+    full = kernel_library(n, True)
+    assert kernel_library(n, True, 0, n) == full and full.name == f"channelizer.n{n}p{FIXED_TAPS}"
+    assert build._target(lib) != build._target(full)
+    # Fewer rows, fewer operations: the block's share of the full mix.
+    muls, adds = mix_op_count(n, c0, rows)
+    assert adds == sum(sign != "=" for br in prog for _, _, sign, _ in br.ops)
+    assert muls <= mix_op_count(n)[0] and adds <= mix_op_count(n)[1]
+    # chip_smoke.py's bound of a block: every branch and DC removal, the
+    # block's mix and requantize, its rows written.
+    work = chip_smoke.channelizer_work(tc.ChannelizerSpec(n_channels=n), 1000, 1.0, c0, rows)
+    assert work["f32_instr"] == 1000 * (4 * n * 8 - 2 * n + 6 * n + 9 * rows + muls + adds)
+    assert work["bytes"] == 2 * n * 1000 + 2 * n * 8 + 2 * rows * 1000
+
+
+@pytest.mark.cuda
+def test_cuda_block_kernel_equals_full_rows():
+    """On the card: each block instantiation of the wideband mesh's channel
+    shards (N = 12 in 2, 4 and 12 blocks, N = 4 in 2) is byte-equal to the
+    same rows of the full launch and to its plain version, into a fresh
+    tensor and into rows of a wider buffer, with the stream head's and a
+    carried history."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the channelizer kernel runs only there")
+    cases = [(12, 6), (12, 3), (12, 1), (4, 2)]
+    libs = []
+    for n, rows in cases:
+        libs += [kernel_library(n, True)] + [kernel_library(n, True, c0, rows)
+                                              for c0 in range(0, n, rows)]
+    build.build_many(list(dict.fromkeys(libs)))  # one nvcc each, together
+    for n, rows in cases:
+        spec = tc.ChannelizerSpec(n_channels=n)
+        p, f = spec.history_frames, 3 * 8192 + 640 + 37
+        wb = torch.from_numpy(_stream(n, p, f, seed=70 + n + rows).copy()).cuda()
+        hist, chunk = wb[: p * n], wb[p * n :]
+        for first in (True, False):
+            full = channelize_requantize_fused(spec, hist, chunk, first)
+            plain = channelize_requantize_plain(spec, hist, chunk, first)
+            for c0 in range(0, n, rows):
+                before = channelize_requantize_fused.launches
+                got = channelize_requantize_fused(spec, hist, chunk, first, channel_start=c0,
+                                                  channel_count=rows)
+                wide = torch.zeros((rows, f + 300), dtype=torch.uint16, device="cuda")
+                channelize_requantize_fused(spec, hist, chunk, first, out=wide[:, 5 : 5 + f],
+                                            channel_start=c0, channel_count=rows)
+                torch.cuda.synchronize()
+                assert channelize_requantize_fused.launches == before + 2
+                what = f"N={n} block [{c0}, {c0 + rows}) first={first}"
+                rows_full = full[c0 : c0 + rows].view(torch.int16)
+                assert torch.equal(got.view(torch.int16), rows_full), what
+                assert torch.equal(got.view(torch.int16),
+                                   plain[c0 : c0 + rows].view(torch.int16)), what
+                assert torch.equal(wide[:, 5 : 5 + f].view(torch.int16), rows_full), what
+                assert not wide[:, :5].view(torch.int16).any(), what
+                assert not wide[:, 5 + f :].view(torch.int16).any(), what

@@ -333,19 +333,6 @@ def test_refuses_jax_mesh_checkpoint(tmp_path):
         restore_checkpoint(port(), loaded)
 
 
-def test_refuses_multihost_files(tmp_path):
-    base = str(tmp_path / "mh")
-    with open(base + ".p0.meta.json", "w") as f:
-        json.dump({"kind": "multihost", "byte_offset": 0}, f)
-    assert ck.checkpoint_exists(base)
-    with pytest.raises(ValueError, match="multi-host.*multi-GPU"):
-        load_checkpoint(base)
-    with open(base + ".meta.json", "w") as f:
-        json.dump({"kind": "multihost"}, f)
-    with pytest.raises(ValueError, match="'multihost'.*multi-GPU"):
-        load_checkpoint(base)
-
-
 # ---------------------------------------------------------------------------
 # Atomic save
 
@@ -594,16 +581,6 @@ def test_cli_refuses_bad_checkpoints(tmp_path, capsys):
     assert cli(base + ["-msgtype=scm,idm,r900", "-channels=4",
                        f"-checkpoint={tmp_path / 'n'}"]) == (1, [])
     assert "kind mismatch" in capsys.readouterr().err
-
-
-@pytest.mark.parametrize("extra", [["-channels=4"]])
-def test_cli_checkpoint_with_mesh_exits_1(extra, capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(["-msgtype=scm", "-symbollength=78", f"-fromfile={SAMPLE}", "-mesh",
-              "-checkpoint=ckpt"] + extra, device="cpu")
-    assert exc.value.code == 1
-    err = capsys.readouterr().err
-    assert "not ported" in err and "-checkpoint" in err and "multi-GPU" in err
 
 
 def test_sample_ring_resume_matches_a_walk():

@@ -135,23 +135,6 @@ def test_encoder_matches_golden_fixture(proto, fmt):
     assert out.getvalue() == want
 
 
-UNPORTED = [
-    (["-coordinator=127.0.0.1:9999"], "multi-host"),
-    (["-channels=4", "-mesh"], "multi-GPU"),
-]
-
-
-@pytest.mark.parametrize(
-    "flags,words", UNPORTED, ids=[f"{' '.join(f)}-{w}" for f, w in UNPORTED]
-)
-def test_unported_modes_exit_1(flags, words, capsys):
-    with pytest.raises(SystemExit) as exc:
-        main(GOLDEN_ARGS + flags, device="cpu")
-    assert exc.value.code == 1
-    err = capsys.readouterr().err
-    assert "not ported" in err and words in err
-
-
 def test_backend_flag_has_no_effect(capsys):
     rc, out = port_cli(GOLDEN_ARGS + ["-backend=pallas", "-format=json"])
     assert rc == 0 and len(out.strip().splitlines()) == 14

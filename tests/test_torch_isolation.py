@@ -23,7 +23,9 @@ loaded = sorted(m for m in sys.modules
                 or m == "rtlamr_tpu" or m.startswith("rtlamr_tpu."))
 assert {"rtlamr_tpu_torch.decoder.checkpoint", "rtlamr_tpu_torch.ref.decoder",
         "rtlamr_tpu_torch.utils.modes", "rtlamr_tpu_torch.data",
-        "rtlamr_tpu_torch.native", "rtlamr_tpu_torch.parallel.mesh"} <= set(names)
+        "rtlamr_tpu_torch.native", "rtlamr_tpu_torch.parallel.mesh",
+        "rtlamr_tpu_torch.parallel.wideband_mesh",
+        "rtlamr_tpu_torch.parallel.distributed"} <= set(names)
 print(len(names), loaded)
 """
 

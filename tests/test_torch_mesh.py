@@ -350,12 +350,15 @@ def test_cli_mesh_checkpoint_interrupt_resume(tmp_path, monkeypatch):
 
 
 def test_cli_mesh_refusals(capsys):
-    """-channels with -mesh, and a device list without -mesh, are refused."""
+    """A device list without -mesh, and -mesh with fewer than one channel,
+    are refused."""
     with pytest.raises(SystemExit) as exc:
-        main(GOLDEN + ["-channels=4", "-mesh"], device=["cpu"] * 2)
-    assert exc.value.code == 1 and "multi-GPU wideband" in capsys.readouterr().err
+        main(GOLDEN + ["-channels=0", "-mesh"], device=["cpu"] * 2)
+    assert exc.value.code == 1 and "invalid -channels value 0" in capsys.readouterr().err
     with pytest.raises(ValueError, match="needs -mesh"):
         main(GOLDEN, device=["cpu"] * 2)
+    with pytest.raises(ValueError, match="needs -mesh"):
+        main(GOLDEN + ["-channels=4"], device=["cpu"] * 2)
 
 
 # ---------------------------------------------------------------------------
