@@ -25,7 +25,10 @@ a non-zero exit code and no result line:
             samples/s, where the host time of a window goes, and the device
             time and kernel count of one window program.
 5. batch    the same capture device-resident through
-            ``decode_staged_batch``: the same message stream.
+            ``decode_staged_batch``: the same message stream; and
+            ``run_window`` on the raw u8 bytes of windows 0 and 1 (halo
+            first), equal to the decode of the host-staged buffer, K1 once
+            a call.
 6. wideband the wideband path at full width: 12 channels at chip length 72,
             1024-block windows, two full super-steps and a flushed partial
             one of a synthetic capture (``bench_wideband.py``'s recipe)
@@ -69,6 +72,14 @@ a non-zero exit code and no result line:
             0) equal to the plain run, and ``-mesh -checkpoint`` with SIGINT
             during a read, then resumed, equal to the straight run.
             Prints K1's launches.
+    mesh_staged  the device-resident mesh super-batch: the decode phase's
+            capture staged with ``stage_superbatch``, resident on the card,
+            through ``MeshDecoder.decode_superbatch_staged`` with 2 and 4
+            shards on the card, K = 2, twice each: the streaming mesh's
+            stream and the planted set, K1 once a window of every
+            super-batch plus once an escalation, exactly, the second decode
+            of the batch equal to the first. Prints the device-resident
+            rate (samples/s by CUDA events around the decode and drain).
 11. wide_mesh  the channel x time ``WidebandMeshDecoder`` at full width on
             the wideband phase's capture: mesh (2, 2), one window a time
             shard, its four shards on the card (K2 launched once a shard a
@@ -165,13 +176,13 @@ from rtlamr_tpu_torch.ops.channelizer_fused import (
     kernel_library,
 )
 from rtlamr_tpu_torch.ops.channelizer_mix import mix_op_count
-from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed
-from rtlamr_tpu_torch.ops.spec import make_frontend_spec, staged_geometry
+from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed, run_window, unpack_results
+from rtlamr_tpu_torch.ops.spec import make_frontend_spec, stage_host, staged_geometry
 from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
 from rtlamr_tpu_torch.parallel import WidebandDecoder, WidebandMeshDecoder
 from rtlamr_tpu_torch.parallel import wideband as wideband_mod
 from rtlamr_tpu_torch.parallel import wideband_mesh as wideband_mesh_mod
-from rtlamr_tpu_torch.parallel.mesh import MeshDecoder, dryrun
+from rtlamr_tpu_torch.parallel.mesh import MeshDecoder, dryrun, stage_superbatch
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
 from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
@@ -715,9 +726,35 @@ def phase_batch(iq: np.ndarray, want_msgs) -> int:
     dec.reset()
     seq = [(b, str(m)) for b, m in dec.decode_staged(list(batch))]
     check(seq == want, "decode_staged: the stream differs from the feed path's")
+    # run_window on the raw u8 bytes of windows 0 and 1, halo first (zeros
+    # before the stream), equal to the decode of the host-staged buffer.
+    spec = dec.spec
+    w, halo = spec.window, spec.halo
+    raw = np.concatenate([np.zeros(2 * halo, np.uint8), iq[: 4 * w]])
+    host_staged = [unpack_results(spec, decode_window_staged_packed(
+        spec, batch[i], i == 0).cpu().numpy()) for i in range(2)]
+    decode_stencil.launches = 0
+    by_run_window = [run_window(spec, raw[2 * i * w : 2 * ((i + 1) * w + halo)], i == 0)
+                     for i in range(2)]
+    rw_launches = decode_stencil.launches
+    check(rw_launches == 2, f"run_window: {rw_launches} K1 launches for 2 windows")
+    for i, (got_i, want_i) in enumerate(zip(by_run_window, host_staged)):
+        check(results_equal(got_i, want_i),
+              f"run_window: window {i} differs from the host-staged decode")
     emit("batch", windows=k, messages=len(got), equal_to_feed=True,
-         staged_equal_to_feed=True, launches=launches)
-    return launches
+         staged_equal_to_feed=True, launches=launches,
+         run_window_equal_to_host_staged=True, run_window_launches=rw_launches)
+    return launches, rw_launches
+
+
+def results_equal(a, b) -> bool:
+    """Whether two unpacked window results (dicts of arrays, lists of
+    arrays) are equal element for element."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(results_equal(a[x], b[x]) for x in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(results_equal(x, y) for x, y in zip(a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
 
 
 def channelizer_work(spec: ChannelizerSpec, frames: int, rate: float, c0: int = 0,
@@ -1493,12 +1530,13 @@ def phase_native(card: str, iq: np.ndarray, planted: set, feed_msgs, feed_host_m
     return launches
 
 
-def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
+def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> tuple:
     """The time-sharded MeshDecoder: 1, 2 and 4 shards on one card, and a
     shard a card when there are several, equal the WindowDecoder's stream;
     dryrun at 2 and 4 shards; the CLI's -mesh (every card, and two shards
     on one) and -mesh -checkpoint (one shard). Returns K1's launches in the
-    mesh's runs (the plain CLI run comes before the count is set to 0)."""
+    mesh's runs (the plain CLI run comes before the count is set to 0) and
+    each shard count's stream."""
     t_phase = time.perf_counter()
     want = [(b, str(m)) for b, m in feed_msgs]
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1516,7 +1554,7 @@ def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
         rc, plain, _ = run_cli(argv)
         check(rc == 0 and len(plain) == len(want), f"mesh cli: plain run rc {rc}, {len(plain)}")
         decode_stencil.launches = 0
-        shards, window = {}, None
+        shards, streams, window = {}, {}, None
         for n, devices in layouts.items():
             dec = MeshDecoder([new_parser(x, 72) for x in ALL], devices=devices,
                               window_blocks=1024, max_hits=256)
@@ -1526,6 +1564,7 @@ def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
             secs = time.perf_counter() - t0
             check(got == want, f"mesh n={n}: {len(got)} messages, the WindowDecoder "
                   f"{len(want)}, or they differ")
+            streams[n] = got
             shards[n] = {"messages": len(got), "windows": dec.metrics.windows_decoded,
                          "launches": decode_stencil.launches - k0, "seconds": secs}
             # K1 runs on every window of a super-batch, valid or not.
@@ -1553,7 +1592,70 @@ def phase_mesh(card: str, iq: np.ndarray, feed_msgs) -> int:
     check(launches > 0, "mesh: the decode stencil kernel was not launched")
     emit("mesh", card=card, shards=shards, dryrun=dry, cli=cli_runs, cli_checkpoint=ckpt,
          launches=launches, seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, streams
+
+
+def phase_mesh_staged(card: str, iq: np.ndarray, planted: set, streaming: dict) -> int:
+    """The device-resident mesh super-batch at full width: the throughput
+    capture staged with stage_superbatch, resident on the card, decoded by
+    MeshDecoder.decode_superbatch_staged with 2 and 4 shards on the card, K
+    = 2 (the halo ring's copies stay on the card). Its stream equals the
+    streaming mesh's at the same shard count (``streaming``, from phase
+    mesh) and holds the planted set; K1 runs once a window of every
+    super-batch plus once an escalation, exactly; a second decode of the
+    same batch gives the same stream. Prints the device-resident rate by
+    CUDA events (no claim). Returns K1's launches in the staged runs."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shards, total_launches = {}, 0
+    for n in (2, 4):
+        dec = MeshDecoder([new_parser(x, 72) for x in ALL], devices=[dev] * n,
+                          window_blocks=1024, max_hits=256)
+        k, size = dec.scan_windows, dec.window_bytes
+        batches = []
+        for pos in range(0, iq.size, size):
+            chunk = np.zeros(size, np.uint8)
+            chunk[: iq[pos : pos + size].size] = iq[pos : pos + size]
+            valid = None if pos + size <= iq.size else (iq.size - pos) // dec.cfg.block_size2
+            sb = stage_superbatch(dec.spec, chunk, n, k)
+            batches.append(([torch.from_numpy(sb[s]).to(dev) for s in range(n)], valid))
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(2):
+            dec.reset()
+            overflows = dec.metrics.hit_overflows
+            decode_stencil.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            msgs = []
+            for batch, valid in batches:
+                msgs += dec.decode_superbatch_staged(batch, valid, drain=False)
+            msgs += dec.drain()
+            end.record()
+            torch.cuda.synchronize()
+            launches = decode_stencil.launches
+            escalations = dec.metrics.hit_overflows - overflows
+            check(launches == len(batches) * n * k + escalations,
+                  f"mesh_staged n={n}: {launches} K1 launches for {len(batches)} super-batches "
+                  f"of {n * k} windows and {escalations} escalations")
+            runs.append(([(b, str(m)) for b, m in msgs], start.elapsed_time(end), launches,
+                         {(m.msg_type(), m.meter_id()) for _, m in msgs}))
+        (first, ms, launches, ids), (again, ms2, _, _) = runs
+        check(first == streaming[str(n)], f"mesh_staged n={n}: {len(first)} messages, the "
+              f"streaming mesh {len(streaming[str(n)])}, or they differ")
+        check(ids == planted, f"mesh_staged n={n}: missing {sorted(planted - ids)[:8]}, "
+              f"extra {sorted(ids - planted)[:8]}")
+        check(again == first, f"mesh_staged n={n}: the second decode of the batch differs")
+        samples = iq.size // 2
+        shards[str(n)] = {"super_batches": len(batches), "messages": len(first),
+                          "launches": launches, "ms": [ms, ms2],
+                          "samples_per_s": [samples / (t / 1e3) for t in (ms, ms2)]}
+        total_launches += 2 * launches
+        del dec, batches
+    check(total_launches > 0, "mesh_staged: the decode stencil kernel was not launched")
+    emit("mesh_staged", card=card, scan_windows=2, samples=iq.size // 2, shards=shards,
+         launches=total_launches, seconds=time.perf_counter() - t_phase)
+    return total_launches
 
 
 def phase_wide_mesh(card: str, wide, window_blocks: int = 1024) -> tuple:
@@ -1870,7 +1972,7 @@ def main() -> int:
     # showed in the paths' host and span times.
     cli_launches = phase_cli()
     msgs, launches, feed_host_ms = phase_decode(card, iq, planted)
-    batch_launches = phase_batch(iq, msgs)
+    batch_launches, run_window_launches = phase_batch(iq, msgs)
     wide_k1, wide_k2, wide = phase_wideband(card)
     # The port's oracle over the throughput capture in worker processes
     # while the untimed wideband_cli and resume phases run, and waited for
@@ -1893,7 +1995,8 @@ def main() -> int:
          seconds=time.perf_counter() - t_oracle, waited_s=time.perf_counter() - t_wait)
     # The native phase times host work, so it runs once the workers are done.
     native_k1 = phase_native(card, iq, planted, msgs, feed_host_ms)
-    mesh_k1 = phase_mesh(card, iq, msgs)
+    mesh_k1, mesh_streams = phase_mesh(card, iq, msgs)
+    mesh_staged_k1 = phase_mesh_staged(card, iq, planted, mesh_streams)
     wmesh_k1, wmesh_k2 = phase_wide_mesh(card, wide)
     del wide
     multihost_k1 = phase_multihost(card, iq, msgs)
@@ -1909,11 +2012,13 @@ def main() -> int:
         "launches": launches,
         "launches_cli": cli_launches,
         "launches_batch": batch_launches,
+        "launches_run_window": run_window_launches,
         "launches_wideband": wide_k1,
         "launches_wideband_cli": wcli_k1,
         "launches_resume": resume_k1,
         "launches_native": native_k1,
         "launches_mesh": mesh_k1,
+        "launches_mesh_staged": mesh_staged_k1,
         "launches_wide_mesh": wmesh_k1,
         "launches_multihost_per_process": multihost_k1,
         "parity": "exact",

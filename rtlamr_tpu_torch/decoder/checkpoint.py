@@ -11,8 +11,8 @@ restoring it continues the decode bit-identically.
   ``(halo_staged,)`` u16 staged tail in ``path.carry.bin``.
 - :class:`~rtlamr_tpu_torch.parallel.MeshDecoder`: kind ``"window"`` with
   the JAX mesh decoder's ``(halo,)`` carry, the last ``halo`` samples of the
-  stream (its staged tail without the ``pad_shift`` samples no stencil
-  reads), so either package's mesh decoder resumes it. A mesh checkpoint
+  stream (held on shard 0's device and fetched for the save), so either
+  package's mesh decoder resumes it. A mesh checkpoint
   into a single-device decoder, or the reverse, is refused as a geometry
   mismatch, as the JAX package refuses it.
 - :class:`~rtlamr_tpu_torch.parallel.WidebandDecoder`: kind ``"wideband"``,
@@ -402,15 +402,12 @@ def capture_checkpoint(dec, byte_offset: int):
             window=dec.spec.window,
         )
     if isinstance(dec, WindowDecoder):
-        carry = state["carry"]
-        if isinstance(dec, MeshDecoder):
-            carry = carry[dec.spec.pad_shift :]  # the JAX mesh decoder's (halo,)
         return Checkpoint(
             byte_offset=byte_offset,
             window_index=state["window_index"],
             last_block=state["last_block"],
             first=state["first"],
-            carry=carry,
+            carry=state["carry"],  # a MeshDecoder's: the JAX mesh decoder's (halo,)
             prev_digests=[tuple(d) for d in state["dedup_prev"]],
             window=dec.spec.window,
         )
@@ -506,8 +503,6 @@ def restore_checkpoint(dec, ckpt) -> None:
                 hint = ("a single-device decoder's tail; resume it without -mesh"
                         if carry.shape == (hs,) else "different message types?")
                 raise _geometry("carry", carry.shape, (halo,), hint)
-            # The pad_shift samples before the halo are read by no stencil.
-            carry = np.concatenate([np.zeros(hs - halo, np.uint16), carry])
         elif carry.shape != (hs,):
             hint = ("a mesh decoder's tail: resume it with -mesh, the multi-GPU "
                     "time-sharded decoder"

@@ -209,7 +209,7 @@ class WindowDecoder:
         if self._inflight is not None:
             raise RuntimeError("export_state: drain() the in-flight window first")
         return {
-            "carry": self._carry.copy(),
+            "carry": self._host_carry(),
             "first": bool(self._first),
             "window_index": int(self._window_index),
             "last_block": int(self._last_block),
@@ -222,18 +222,25 @@ class WindowDecoder:
         """Resume a stream from :meth:`export_state` values (or the same
         values read from the JAX package's decoder)."""
         self.reset()
-        carry = np.asarray(state["carry"], np.uint16)
-        if carry.shape != (self.spec.halo_staged,):
-            raise ValueError(
-                f"load_state: carry of {carry.shape}, want ({self.spec.halo_staged},)"
-            )
-        self._carry = carry.copy()
+        self._load_carry(np.asarray(state["carry"], np.uint16))
         self._first = bool(state["first"])
         self._window_index = int(state["window_index"])
         self._last_block = int(state["last_block"])
         self._deduper.prev = {Digest(*d) for d in state["dedup_prev"]}
         self._deduper.next = {Digest(*d) for d in state["dedup_next"]}
         self._pending = np.array(state.get("pending", ()), np.uint8)
+
+    def _host_carry(self) -> np.ndarray:
+        """The carry as :meth:`export_state` gives it."""
+        return self._carry.copy()
+
+    def _load_carry(self, carry: np.ndarray) -> None:
+        """Take a carry from :meth:`load_state`."""
+        if carry.shape != (self.spec.halo_staged,):
+            raise ValueError(
+                f"load_state: carry of {carry.shape}, want ({self.spec.halo_staged},)"
+            )
+        self._carry = carry.copy()
 
     @property
     def window_bytes(self) -> int:

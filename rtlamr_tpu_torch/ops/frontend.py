@@ -6,6 +6,15 @@ output flattened into ONE u8 buffer so the host fetches a window's results
 in a single device-to-host copy. The layout is byte-identical to the JAX
 package's ``pack_results`` (int32 fields little-endian), so the same
 :func:`unpack_results` reads either.
+
+The raw-u8 window API takes one window of u8 interleaved IQ, its halo
+first (``2 * (halo + window)`` bytes), as the JAX package's does:
+:func:`stage_iq` stages it on its device, :func:`decode_core`,
+:func:`frontend_stage` and :func:`bits_q6` decode a tensor where it lies,
+:func:`decode_window`, :func:`decode_window_staged` and
+:func:`decode_window_packed` take numpy or a tensor to ``device`` (``None``:
+the card) first, and :func:`run_window` stages on the host and returns
+NumPy results.
 """
 
 from __future__ import annotations
@@ -15,9 +24,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..protocols.r900 import PAYLOAD_SYMBOLS
 from .search import search_slice
-from .spec import FrontendSpec
+from .spec import FrontendSpec, stage_host, staged_geometry
 from .stencil import decode_stencil
 
 
@@ -25,6 +35,60 @@ def decode_core_staged(spec: FrontendSpec, staged: torch.Tensor, first: bool):
     """Stencil + search over one staged u16 window (result dict)."""
     bits, q6, mask2d = decode_stencil(spec, staged, first)
     return search_slice(spec, bits, q6, mask2d)
+
+
+def stage_iq(spec: FrontendSpec, iq: torch.Tensor) -> torch.Tensor:
+    """u8 interleaved IQ -> staged u16 buffer, on ``iq``'s device.
+
+    ``iq`` covers stream samples ``[window_start - halo, window_start +
+    window)``; it lands at staged offset ``pad_shift``, zeros elsewhere.
+    Bytes already on the host are staged with
+    :func:`~rtlamr_tpu_torch.ops.spec.stage_host` instead."""
+    size = staged_geometry(spec).staged_samples
+    if iq.dtype != torch.uint8 or iq.numel() % 2 or spec.pad_shift + iq.numel() // 2 > size:
+        raise ValueError(f"stage_iq: want an even count of at most "
+                         f"{2 * (size - spec.pad_shift)} u8 bytes, got {iq.dtype} {tuple(iq.shape)}")
+    u16 = iq.reshape(-1).contiguous().view(torch.uint16)
+    out = torch.zeros(size, dtype=torch.int16, device=iq.device)
+    out[spec.pad_shift : spec.pad_shift + u16.numel()] = u16.view(torch.int16)
+    return out.view(torch.uint16)
+
+
+def decode_core(spec: FrontendSpec, iq: torch.Tensor, first: bool):
+    """Decode one window of u8 interleaved IQ, halo first, on its device:
+    the result dict of :func:`decode_core_staged`."""
+    return decode_core_staged(spec, stage_iq(spec, iq), first)
+
+
+def frontend_stage(spec: FrontendSpec, iq: torch.Tensor, first: bool):
+    """The stencil stage over u8 interleaved IQ: ``(bits, q6, mask2d)``."""
+    return decode_stencil(spec, stage_iq(spec, iq), first)
+
+
+def bits_q6(spec: FrontendSpec, iq: torch.Tensor, first: bool):
+    """The quantized streams only: ``(bits, q6)``."""
+    bits, q6, _ = frontend_stage(spec, iq, first)
+    return bits, q6
+
+
+def _to(x, device: DeviceLike) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev)
+
+
+def decode_window(spec: FrontendSpec, iq, first: bool, device: DeviceLike = None):
+    """:func:`decode_core` of ``iq`` (numpy or a tensor) on ``device``."""
+    return decode_core(spec, _to(iq, device), bool(first))
+
+
+def decode_window_staged(spec: FrontendSpec, staged, first: bool,
+                         device: DeviceLike = None):
+    """:func:`decode_core_staged` of a staged u16 buffer (numpy or a
+    tensor) on ``device``."""
+    return decode_core_staged(spec, _to(staged, device), bool(first))
 
 
 def result_layout(spec: FrontendSpec) -> List[Tuple[str, int, int]]:
@@ -87,17 +151,24 @@ def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first:
     return pack_results(decode_core_staged(spec, staged, first))
 
 
+def decode_window_packed(spec: FrontendSpec, iq, first: bool, device: DeviceLike = None):
+    """:func:`decode_window` with every output in one u8 buffer."""
+    return pack_results(decode_window(spec, iq, first, device))
+
+
 def decode_windows_scan(
-    spec: FrontendSpec, staged_batch: torch.Tensor, firsts: Sequence[bool]
+    spec: FrontendSpec, staged_batch: Sequence[torch.Tensor], firsts: Sequence[bool]
 ) -> torch.Tensor:
-    """Decode K staged windows into one (K, P) u8 result matrix.
+    """Decode K staged windows, a (K, staged_samples) tensor or K such rows
+    on one device, into one (K, P) u8 result matrix.
 
     The JAX package runs the K windows as one ``lax.scan`` program; here
     they are K window programs enqueued back to back on the current stream,
     each writing its row of one buffer, so the host still fetches once.
     """
-    k = int(staged_batch.shape[0])
-    out = torch.empty((k, packed_size(spec)), dtype=torch.uint8, device=staged_batch.device)
+    k = len(staged_batch)
+    out = torch.empty((k, packed_size(spec)), dtype=torch.uint8,
+                      device=staged_batch[0].device)
     for i in range(k):
         out[i] = decode_window_staged_packed(spec, staged_batch[i], bool(firsts[i]))
     return out
@@ -137,3 +208,12 @@ def unpack_results(spec: FrontendSpec, buf: np.ndarray) -> Dict[str, object]:
         if g in out["symbols"]:
             out["symbols"][g] = out["symbols"][g][mask]
     return out
+
+
+def run_window(spec: FrontendSpec, iq: np.ndarray, first: bool,
+               device: DeviceLike = None) -> Dict[str, object]:
+    """Host wrapper: stage on the host, one transfer to ``device`` (``None``:
+    the card) and one packed transfer back; NumPy results."""
+    staged = torch.from_numpy(stage_host(spec, iq)).to(resolve_device(device))
+    buf = decode_window_staged_packed(spec, staged, bool(first))
+    return unpack_results(spec, buf.cpu().numpy())

@@ -10,9 +10,9 @@ num_processes * n_local``; process ``p`` owns the windows ``[p * n_local * K,
 
 Each process decodes its segment as the one-process
 :class:`~rtlamr_tpu_torch.parallel.MeshDecoder` decodes a super-batch over
-its local devices (``stage_superbatch`` on the host, one window program a
-window, one pinned fetch, dispatch-ahead). What crosses processes is host
-data, sent point to point over gloo:
+its local devices (``decode_segment``: the halo ring across them, one
+window program a window, one pinned fetch, dispatch-ahead). What crosses
+processes is host data, sent point to point over gloo:
 
 - **The halo.** Each process reads its own segment on the host, so the only
   samples it lacks are the ``halo_staged`` u16 samples before it: the end
@@ -20,8 +20,9 @@ data, sent point to point over gloo:
   process sends its segment's tail to ``p + 1`` (``isend``) and receives its
   own halo from ``p - 1``; the wrap hop ``n - 1 -> 0`` is the stream tail,
   the carry into process 0's next super-batch (the JAX program's
-  ``left_recv``); process 0 starts from zeros at the stream head. Every
-  window's staged buffer then holds its true halo, so an overflowed window
+  ``left_recv``); process 0 starts from zeros at the stream head. The
+  received halo is the carry of the process's local halo ring, so every
+  window's staged buffer holds its true halo and an overflowed window
   escalates from its device copy.
 - **The seam dedup.** The reference's digest dedup looks one block back
   (main.go:252-292), so only a process's first block can repeat its left
@@ -224,7 +225,7 @@ class MultiHostDecoder:
         """Resume a stream from :meth:`export_state` values."""
         self.reset()
         self._local.load_state({
-            "carry": self._carry, "first": False, "window_index": 0,
+            "carry": self._carry[self.spec.pad_shift :], "first": False, "window_index": 0,
             "last_block": state["last_block"], "dedup_prev": state["dedup_prev"],
             "dedup_next": (),
         })

@@ -11,21 +11,33 @@ once, one super-batch late (dispatch-ahead), and parsed in global window
 order, so the reference's adjacent-block digest dedup (main.go:252-292)
 applies across shard boundaries unchanged.
 
-Halos: every window needs the ``halo`` samples before it. The JAX package
-stages each shard's first halo as zeros and fills it in the device program
-from the left neighbour by ``ppermute``, because on a multi-host mesh that
-neighbour's samples live on another host. Here one process holds every byte
-of the super-batch, so every window's halo is staged on the host, as the
-K-window batch stages them, and the carry between super-batches is the
-stream tail on the host, as in :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`.
-Across processes the multi-host decoder (``parallel/distributed.py``) sends
-each segment's tail to the next process over gloo, also host data, and
-stages the same way. So each window's staged buffer is the one
-``WindowDecoder`` would build, the messages are the same, and an
-overflowed window is escalated with its full halo from its device copy.
+Halos: every window needs the ``halo`` samples before it. A super-batch is
+laid out as the JAX package lays it out (:func:`stage_superbatch`): a window
+``k >= 1`` of a shard gets its halo from window ``k - 1`` when it is staged,
+and each shard's window 0 has a zero halo. The halo ring fills that on the
+devices, as the JAX package's ``ppermute`` does
+(:meth:`MeshDecoder.decode_superbatch_staged`): the last ``halo`` samples of
+shard ``s``'s last window are copied card to card into shard ``s + 1``'s
+window 0, shard 0 takes the carry, and the wrap hop copies shard ``n - 1``'s
+tail to shard 0's card, where it stays as the next super-batch's carry; it
+reaches the host only for a checkpoint. The ring's copies are ``copy_``
+between devices, which PyTorch orders against the current streams of both
+cards (the copy waits for the work already enqueued on either, and later
+work on the destination waits for the copy), so no event is needed beside
+them. The fill goes into a copy of window 0 that the decoder owns, so a
+caller's batch is left as it was and can be decoded again, and an overflowed
+window is escalated with its full halo from its device copy.
+
+The streaming path (:meth:`MeshDecoder.feed`) stages each super-batch on the
+host into a pinned buffer, copies each shard's windows to its card and goes
+through the same method. Across processes the multi-host decoder
+(``parallel/distributed.py``) sends each segment's tail to the next process
+over gloo and hands it to :meth:`MeshDecoder.decode_segment`, which puts it
+on shard 0's card as the carry.
 
 A device may repeat in ``devices`` (``["cpu"] * 4``, ``["cuda:0"] * 2``):
-its shards then run one after another on it.
+its shards then run one after another on it, and the ring's copies between
+them stay on that device.
 """
 
 from __future__ import annotations
@@ -44,30 +56,36 @@ from ..protocols.base import Message, Parser
 
 
 def stage_superbatch(
-    spec: FrontendSpec, iq_bytes: np.ndarray, n: int, k: int, carry: np.ndarray,
+    spec: FrontendSpec, iq_bytes: np.ndarray, n: int, k: int,
     out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
-    """Stage ``n*k`` windows of raw interleaved IQ behind ``carry``, the
-    (halo_staged,) u16 stream tail before them, into (n, k, staged_samples)
-    u16 (into ``out`` when given): window ``j`` holds the stream samples
-    ``[j*W - halo_staged, (j+1)*W)`` at ``[0, halo_staged + W)``, zeros
-    past them."""
-    w, hs = spec.window, spec.halo_staged
+    """Stage ``n*k`` windows of raw interleaved IQ into (n, k,
+    staged_samples) u16 (into ``out`` when given), byte for byte as the JAX
+    package stages them: each window's own samples at ``[halo_staged,
+    halo_staged + window)``; the halo of a window ``k >= 1`` of a shard, the
+    last ``halo`` samples of window ``k - 1``, at ``[pad_shift,
+    halo_staged)``; zeros elsewhere. Each shard's window 0 keeps a zero halo:
+    the halo ring fills it on the devices."""
+    w, halo = spec.window, spec.halo
+    ps, hs = spec.pad_shift, spec.halo_staged
     size = staged_geometry(spec).staged_samples
     u16 = np.ascontiguousarray(iq_bytes, np.uint8).view(np.uint16)
-    if u16.size != n * k * w or carry.shape != (hs,):
-        raise ValueError(f"stage_superbatch: {u16.size} samples and a carry of "
-                         f"{carry.shape}, want {n * k * w} and ({hs},)")
+    if u16.size != n * k * w:
+        raise ValueError(f"stage_superbatch: {u16.size} samples, want {n * k * w}")
+    u16 = u16.reshape(n, k, w)
     sb = np.empty((n, k, size), np.uint16) if out is None else out
-    flat = sb.reshape(n * k, size)
-    flat[:, hs + w :] = 0
-    flat[:, hs : hs + w] = u16.reshape(n * k, w)
-    for j in range(n * k):
-        # stream sample x < 0 is carry[x + hs]
-        neg = max(hs - j * w, 0)
-        flat[j, :neg] = carry[hs - neg :]
-        flat[j, neg:hs] = u16[j * w - hs + neg : j * w]
+    sb[:, :, :ps] = 0
+    sb[:, 0, ps:hs] = 0
+    sb[:, 1:, ps:hs] = u16[:, :-1, w - halo :]
+    sb[:, :, hs : hs + w] = u16
+    sb[:, :, hs + w :] = 0
     return sb
+
+
+def _copy16(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` for u16 tensors, between any two devices (moved
+    as int16: the same bytes)."""
+    dst.view(torch.int16).copy_(src.view(torch.int16))
 
 
 class _Events(list):
@@ -84,7 +102,8 @@ class MeshDecoder(WindowDecoder):
 
     Decode semantics (message sets, block indices, dedup) are those of
     :class:`WindowDecoder`; each :meth:`feed` step decodes ``n *
-    scan_windows`` windows.
+    scan_windows`` windows. The stream state's carry is the JAX mesh
+    decoder's: the stream's last ``halo`` samples, (halo,) u16.
 
     Args:
       devices: one device a shard; ``None`` means every visible card, and
@@ -119,6 +138,21 @@ class MeshDecoder(WindowDecoder):
                 f"(window {self.spec.window} < halo {self.spec.halo})"
             )
 
+    def reset(self) -> None:
+        super().reset()
+        #: the stream's last ``halo`` samples before the next super-batch, on
+        #: shard 0's device: the wrap hop's delivery (zeros at the stream head)
+        self._carry = torch.zeros(self.spec.halo, dtype=torch.int16,
+                                  device=self.devices[0]).view(torch.uint16)
+
+    def _host_carry(self) -> np.ndarray:
+        return self._carry.cpu().numpy().copy()
+
+    def _load_carry(self, carry: np.ndarray) -> None:
+        if carry.shape != (self.spec.halo,):
+            raise ValueError(f"load_state: carry of {carry.shape}, want ({self.spec.halo},)")
+        self._carry = torch.from_numpy(carry.copy()).to(self.devices[0])
+
     @property
     def window_bytes(self) -> int:  # feed() granularity: one super-batch
         return 2 * self.spec.window * self.n_devices * self.scan_windows
@@ -134,11 +168,16 @@ class MeshDecoder(WindowDecoder):
     ) -> List[Tuple[int, Message]]:
         """Dispatch one super-batch that is a segment of a longer stream and
         complete the previous one, as :meth:`feed` does: ``carry`` is the
-        (halo_staged,) u16 stream samples before the segment, ``first``
-        whether it starts the stream, ``window_index`` the stream index of
-        its first window. The multi-host decoder decodes each process's
-        segment with it."""
-        self._carry = np.asarray(carry, np.uint16)
+        (halo_staged,) u16 stream samples before the segment, whose last
+        ``halo`` go to shard 0's device as the carry; ``first`` whether it
+        starts the stream, ``window_index`` the stream index of its first
+        window. The multi-host decoder decodes each process's segment with
+        it."""
+        carry = np.asarray(carry, np.uint16)
+        if carry.shape != (self.spec.halo_staged,):
+            raise ValueError(f"decode_segment: carry of {carry.shape}, "
+                             f"want ({self.spec.halo_staged},)")
+        self._load_carry(carry[self.spec.pad_shift :])
         self._first = first
         self._window_index = window_index
         return self._process_window(super_bytes, valid_blocks)
@@ -146,30 +185,68 @@ class MeshDecoder(WindowDecoder):
     def _process_window(
         self, super_bytes: np.ndarray, valid_blocks: Optional[int] = None
     ) -> List[Tuple[int, Message]]:
-        """Stage one super-batch, copy each shard's windows to its device
-        and enqueue their programs and the one fetch; complete the previous
-        super-batch. ``valid_blocks`` counts the blocks of a partial last
-        super-batch, over all its windows."""
+        """Stage one super-batch into a host buffer, copy each shard's
+        windows to its device and decode them there with
+        :meth:`decode_superbatch_staged`; complete the previous super-batch."""
+        n, k = self.n_devices, self.scan_windows
+        cuda = self.device.type == "cuda"
+        size = staged_geometry(self.spec).staged_samples
+        # A fresh pinned buffer a super-batch: the host allocator reuses it
+        # only once the copies that read it have completed. On the CPU each
+        # shard decodes its rows of it in place.
+        sb = torch.empty((n, k, size), dtype=torch.uint16, pin_memory=cuda)
+        stage_superbatch(self.spec, super_bytes, n, k, out=sb.numpy())
+        shards = [sb[s].to(dev, non_blocking=True) if cuda else sb[s]
+                  for s, dev in enumerate(self.devices)]
+        return self.decode_superbatch_staged(shards, valid_blocks, drain=False)
+
+    def decode_superbatch_staged(
+        self, sb: Sequence[torch.Tensor], valid_blocks: Optional[int] = None,
+        drain: bool = True,
+    ) -> List[Tuple[int, Message]]:
+        """Decode a super-batch already on the devices.
+
+        ``sb[s]`` is shard ``s``'s (K, staged_samples) u16 windows on
+        ``devices[s]``, in the :func:`stage_superbatch` layout (window 0's
+        halo zero). The halo ring (module docstring) fills each shard's
+        window-0 halo in a copy the decoder owns, so ``sb`` is left
+        unchanged; then each shard's window programs and the one fetch are
+        enqueued and the previous super-batch is completed. Returns its
+        messages and, with ``drain``, this one's too. ``valid_blocks``
+        counts the blocks of a partial last super-batch, over all its
+        windows."""
         spec = self.spec
         n, k = self.n_devices, self.scan_windows
-        w, hs = spec.window, spec.halo_staged
+        w, halo, hs = spec.window, spec.halo, spec.halo_staged
+        size = staged_geometry(spec).staged_samples
+        if len(sb) != n or any(
+            tuple(b.shape) != (k, size) or b.dtype != torch.uint16 or b.device != dev
+            for b, dev in zip(sb, self.devices)
+        ):
+            raise ValueError(
+                f"decode_superbatch_staged: want {n} ({k}, {size}) uint16 tensors, "
+                f"one on each of {[str(d) for d in self.devices]}; got "
+                f"{[(b.dtype, tuple(b.shape), str(b.device)) for b in sb]}")
         cuda = self.device.type == "cuda"
         t0 = time.monotonic()
-        size = staged_geometry(spec).staged_samples
-        sb_t = torch.empty((n, k, size), dtype=torch.uint16, pin_memory=cuda)
-        sb = stage_superbatch(spec, super_bytes, n, k, self._carry, out=sb_t.numpy())
-        self._carry = sb[n - 1, k - 1, w : w + hs].copy()
+        # The ring: window 0 of shard s gets the tail of shard s - 1's last
+        # window (shard 0: the carry); the last shard's tail is the next carry.
+        left = self._carry
+        shards = []
+        for s, dev in enumerate(self.devices):
+            win0 = torch.empty(size, dtype=torch.uint16, device=dev)
+            _copy16(win0, sb[s][0])
+            _copy16(win0[spec.pad_shift : hs], left)
+            shards.append([win0, *sb[s][1:]])
+            left = sb[s][k - 1, hs + w - halo : hs + w]
+        carry = torch.empty(halo, dtype=torch.uint16, device=self.devices[0])
+        _copy16(carry, left)  # the wrap hop
+        self._carry = carry
 
         host = torch.empty((n, k, packed_size(spec)), dtype=torch.uint8, pin_memory=cuda)
-        batches = []
-        for s, dev in enumerate(self.devices):
-            # A fresh pinned buffer a super-batch: the host allocator reuses
-            # it only once the copies that read it have completed. On the
-            # CPU each shard decodes its rows of it in place.
-            batch = sb_t[s].to(dev, non_blocking=True) if cuda else sb_t[s]
+        for s, windows in enumerate(shards):
             firsts = [self._first and s == 0 and kk == 0 for kk in range(k)]
-            host[s].copy_(decode_windows_scan(spec, batch, firsts), non_blocking=cuda)
-            batches.append(batch)
+            host[s].copy_(decode_windows_scan(spec, windows, firsts), non_blocking=cuda)
         events = _Events()
         if cuda:
             for dev in dict.fromkeys(self.devices):
@@ -186,14 +263,17 @@ class MeshDecoder(WindowDecoder):
                 break  # the valid windows are a prefix
             s, kk = divmod(win, k)
             metas.append(WindowMeta(
-                batches[s][kk], self._first and win == 0,
+                shards[s][kk], self._first and win == 0,
                 win_valid if win_valid < wb else None, self._window_index + win, t0,
             ))
         self._window_index += n * k
         self._first = False
         # Rows in global window order; rows past the last valid window are
         # not completed.
-        return self._dispatch(((host.view(n * k, -1), events if cuda else None), metas))
+        out = self._dispatch(((host.view(n * k, -1), events if cuda else None), metas))
+        if drain:
+            out.extend(self.drain())
+        return out
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -256,7 +336,7 @@ def dryrun(n_devices: int, window_blocks: Optional[int] = None,
     expected = [123456, 424242, 777777]
     if n_devices > 1:
         # Exactly on the first shard boundary: found once and once only
-        # (halo staging + digest dedup).
+        # (the halo ring + digest dedup).
         bursts.append(synth.bits_to_burst(
             synth.make_scm_bits(meter_id=654321, consumption=7),
             shard_span - scm_packet_len // 2))

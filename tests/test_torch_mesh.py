@@ -179,23 +179,36 @@ def test_dryrun(n):
     assert dryrun(n, device="cpu") == 5
 
 
-def test_stage_superbatch_is_the_window_decoders_staging():
-    """Every window of a super-batch is staged as WindowDecoder stages it
-    behind the carry, halo included; the last window's tail is the carry."""
+def test_stage_superbatch_is_the_window_decoders_staging(monkeypatch):
+    """The super-batch is staged in the JAX layout (each shard's window 0
+    with a zero halo); once the halo ring has filled those, every window
+    the mesh decodes equals the buffer WindowDecoder stages for it, on all
+    that a stencil reads (from pad_shift on), over two super-batches, so
+    the carry crosses one; the pad_shift samples before are zero."""
+    from rtlamr_tpu_torch.decoder import pipeline
+    from rtlamr_tpu_torch.parallel import mesh
+
     dec = port_mesh(("scm",), 2, window_blocks=4)
     spec = dec.spec
-    w, hs = spec.window, spec.halo_staged
+    w, ps, hs = spec.window, spec.pad_shift, spec.halo_staged
     rng = np.random.default_rng(5)
-    carry = rng.integers(0, 1 << 16, hs, dtype=np.uint16)
-    iq = rng.integers(0, 256, 2 * 2 * 2 * w, dtype=np.uint8)
-    sb = stage_superbatch(spec, iq, 2, 2, carry)
-    stream = np.concatenate([carry, iq.view(np.uint16)])
-    for j in range(4):
-        s, k = divmod(j, 2)
-        assert np.array_equal(sb[s, k, : hs + w], stream[j * w : j * w + hs + w])
-        assert not sb[s, k, hs + w :].any()
+    iq = rng.integers(0, 256, 2 * (2 * 2 * 2 * w), dtype=np.uint8)
+    sb = stage_superbatch(spec, iq[: dec.window_bytes], 2, 2)
+    assert not sb[:, 0, :hs].any() and not sb[:, 1, :ps].any()
     with pytest.raises(ValueError):
-        stage_superbatch(spec, iq[:-2], 2, 2, carry)
+        stage_superbatch(spec, iq[: dec.window_bytes - 2], 2, 2)
+
+    seen = {"mesh": [], "window": []}
+    scan, single = mesh.decode_windows_scan, pipeline.decode_window_staged_packed
+    monkeypatch.setattr(mesh, "decode_windows_scan", lambda sp, windows, firsts: (
+        seen["mesh"].extend(x.numpy().copy() for x in windows), scan(sp, windows, firsts))[1])
+    monkeypatch.setattr(pipeline, "decode_window_staged_packed", lambda sp, st, first: (
+        seen["window"].append(st.numpy().copy()), single(sp, st, first))[1])
+    dec.decode_capture(iq)
+    port_window(("scm",), 4).decode_capture(iq)
+    assert len(seen["mesh"]) == len(seen["window"]) == 8
+    for got, want in zip(seen["mesh"], seen["window"]):
+        assert np.array_equal(got[ps:], want[ps:]) and not got[:ps].any()
 
 
 def test_mesh_needs_a_card_or_explicit_devices():
