@@ -695,12 +695,10 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     enqueue_ms = (time.perf_counter() - t) / 5 * 1e3
     torch.cuda.synchronize()
     kernels, busy_ms, top = profile_window(lambda: decode_window_staged_packed(spec, staged, False))
-    ex = dec.metrics.extra
     samples = iq.size // 2
     emit("decode", card=card, windows=dec.metrics.windows_decoded,
          messages=len(msgs), planted=len(planted), launches=launches,
          samples=samples, seconds=elapsed, samples_per_s=samples / elapsed,
-         feed_to_emit_ms_max=ex.get("feed_to_emit_ms_max"),
          hit_overflows=dec.metrics.hit_overflows,
          host_ms_per_window=host_ms,
          window_program_ms=window_ms, window_program_no_gates_ms=no_gate_ms,
@@ -1136,8 +1134,6 @@ def phase_wideband(card: str, window_blocks: int = 1024):
          messages=len(msgs), planted=len(planted), launches_k1=k1, launches_k2=k2,
          wideband_samples=samples, seconds=elapsed,
          wideband_samples_per_s=samples / elapsed, render_seconds=render_s,
-         feed_to_emit_ms_max=max(c.metrics.extra.get("feed_to_emit_ms_max", 0.0)
-                                 for c in dec._chan),
          hit_overflows=snap["hit_overflows"], host_ms_per_super_step=host_ms,
          super_step_ms=step_ms, super_step_host_enqueue_ms=enqueue_ms,
          super_step_kernels=kernels, super_step_kernel_ms=busy_ms,

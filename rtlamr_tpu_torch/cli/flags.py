@@ -331,7 +331,8 @@ def build_flagset() -> FlagSet:
     fs.add(
         "metrics",
         False,
-        "print a metrics snapshot to stderr on exit",
+        "trace the decode loop; on exit print the counters, each span's "
+        "time and the windows' turnaround to stderr",
         kind="bool",
     )
     fs.add(

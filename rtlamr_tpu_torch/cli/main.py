@@ -66,6 +66,8 @@ from ..parallel.mesh import MeshDecoder, resolve_devices
 from ..parallel.wideband import WidebandDecoder
 from ..parallel.wideband_mesh import WidebandMeshDecoder
 from ..protocols import new_parser
+from ..utils import observability
+from ..utils.observability import TRACER, RateWatchdog, profile_trace, span
 from .encoders import LogMessage, make_encoder
 from .filters import FilterChain, MeterIDFilter, MeterTypeFilter, UniqueFilter
 from .flags import VALID_SYMBOL_LENGTHS, FlagSet, build_flagset
@@ -506,11 +508,24 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     -duration, SIGINT) saves one; a run to the end of its stream leaves
     none. SIGINT is then taken only between two feeds, so the saved
     position always matches the decoder's state."""
-    from ..utils.observability import RateWatchdog, profile_trace
-
     if fs.value("coordinator"):
         return run_multihost(fs, out, device)
     out = sys.stdout if out is None else out
+    traced_before = TRACER.on
+    if fs.value("metrics"):
+        observability.enable()
+    since = TRACER.snapshot()
+    try:
+        return _run(fs, out, device, since)
+    finally:
+        TRACER.end_windows()
+        if not traced_before:
+            observability.disable()
+
+
+def _run(fs: FlagSet, out, device: Devices, since) -> int:
+    """:func:`run`'s single-process loop; ``since`` is the tracer as it was
+    when the run began."""
     receiver = Receiver(fs, device)
     # Startup config dump, unconditional — the reference logs the decoder
     # config at receiver construction (main.go:124, decode.go:73-90), for
@@ -633,6 +648,9 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
     # iteration: the stream then stops between two feeds, where the decoder
     # state and ``consumed`` agree.
     sigint = _SigintFlag(bool(ckpt_path))
+    # Each window of the single-card decoder has a root span (cli.window)
+    # while the tracer is on.
+    windows = TRACER.on and type(dec) is WindowDecoder
     dropped_seen = 0
     stop = eof = False
     at_boundary = True  # no feed is under way
@@ -647,12 +665,16 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
                         _log("time limit reached")
                         break
                     try:
-                        chunk = source.read(chunk_bytes)
+                        with span("cli.read"):
+                            chunk = source.read(chunk_bytes)
                     except (EOFError, OSError) as e:
                         # A stalled or closed stream cancels the receiver, like
                         # the reference's read-deadline path (main.go:168-181).
                         _log(f"source read: {e}")
                         chunk = np.zeros(0, np.uint8)
+                    if windows:
+                        TRACER.read_returned()
+                        decoded = dec.metrics.windows_decoded
                     if watchdog is not None:
                         watchdog.add_bytes(chunk.size)
                         dropped = source.dropped_bytes()
@@ -677,7 +699,15 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
                             # dispatch-ahead so results emit as soon as the
                             # window computes (throughput preset keeps it).
                             msgs = list(msgs) + list(dec.drain())
-                    stop = emit(msgs)
+                    done = dec.metrics.windows_decoded - decoded if windows else 0
+                    if done:
+                        # The windows completed since the read close once
+                        # their messages are out.
+                        with span("cli.emit", TRACER.last_completed(done)):
+                            stop = emit(msgs)
+                        TRACER.close_windows(done)
+                    else:
+                        stop = emit(msgs)
                     at_boundary = True
                     if eof:
                         break
@@ -701,6 +731,8 @@ def run(fs: FlagSet, out=None, device: Devices = None) -> int:
         if fs.value("metrics"):
             snap = dec.metrics_snapshot() if wideband else dec.metrics.snapshot()
             _log("metrics:", snap)
+            for line in TRACER.summary(since):
+                _log(line)
         source.close()
         dumper.close()
     return 0

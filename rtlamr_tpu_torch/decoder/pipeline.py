@@ -22,7 +22,6 @@ synchronously.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,7 +43,7 @@ from ..protocols.base import (
     digest as mk_digest,
 )
 from ..protocols.r900 import PAYLOAD_SYMBOLS
-from ..utils.observability import Metrics
+from ..utils.observability import Metrics, span, stamp
 from .dedup import BlockDeduper
 
 FilterFn = Callable[[Message], bool]
@@ -61,8 +60,6 @@ class WindowMeta(NamedTuple):
     #: blocks of the window that hold capture (None: all of them)
     valid_blocks: Optional[int]
     window_index: int
-    #: host monotonic clock at dispatch (None: feed-to-emit not timed)
-    dispatched_at: Optional[float] = None
 
 
 def enqueue_fetch(buf: torch.Tensor):
@@ -313,7 +310,8 @@ class WindowDecoder:
 
     def _complete_inflight(self, inflight) -> List[Tuple[int, Message]]:
         handle, meta = inflight
-        host = fetch(handle)
+        with span("pipeline.fetch_wait", -1 if isinstance(meta, list) else meta.window_index):
+            host = fetch(handle)
         if isinstance(meta, list):  # batched (decode_staged_batch)
             out: List[Tuple[int, Message]] = []
             for row, m in zip(host, meta):
@@ -394,6 +392,7 @@ class WindowDecoder:
         """Stage one window of IQ bytes behind the carried halo; dispatch it
         and complete the previous one (results arrive one window late;
         flush() drains the tail)."""
+        self._stage_since = stamp()
         spec = self.spec
         geo = staged_geometry(spec)
         hs, w = spec.halo_staged, spec.window
@@ -405,6 +404,9 @@ class WindowDecoder:
     #: the event recorded after the last :meth:`process_host_staged` copy to
     #: the card (None on the CPU)
     h2d_event: Optional[torch.cuda.Event] = None
+    #: when :meth:`_process_window` began staging the window it hands to
+    #: :meth:`process_host_staged` (a :func:`stamp`; 0: not timed)
+    _stage_since: int = 0
 
     def process_host_staged(
         self, staged: Union[np.ndarray, torch.Tensor], valid_blocks: Optional[int] = None
@@ -423,27 +425,31 @@ class WindowDecoder:
         """
         spec = self.spec
         hs, w = spec.halo_staged, spec.window
-        if isinstance(staged, torch.Tensor):
-            if (staged.device.type != "cpu" or staged.dtype != torch.uint16
-                    or staged.dim() != 1 or not staged.is_contiguous()):
-                raise ValueError(
-                    "process_host_staged: want a contiguous 1-D CPU torch.uint16 "
-                    f"tensor, got {staged.dtype} {tuple(staged.shape)} on {staged.device}")
-            host = staged
-        else:
-            host = torch.from_numpy(np.ascontiguousarray(staged, np.uint16))
-        if self.device.type == "cuda":
-            staged_t = host.to(self.device, non_blocking=True)
-            self.h2d_event = torch.cuda.Event()
-            self.h2d_event.record(torch.cuda.current_stream(self.device))
-        else:
-            staged_t = host.clone()
-            self.h2d_event = None
-        buf = decode_window_staged_packed(spec, staged_t, self._first)
-        meta = WindowMeta(staged_t, self._first, valid_blocks, self._window_index,
-                          time.monotonic())
-        # The device copy serves an escalation; the carry comes from the host.
-        self._carry = host[w : w + hs].numpy().copy()
+        index = self._window_index
+        since, self._stage_since = self._stage_since, 0
+        with span("pipeline.stage", index, since):
+            if isinstance(staged, torch.Tensor):
+                if (staged.device.type != "cpu" or staged.dtype != torch.uint16
+                        or staged.dim() != 1 or not staged.is_contiguous()):
+                    raise ValueError(
+                        "process_host_staged: want a contiguous 1-D CPU torch.uint16 "
+                        f"tensor, got {staged.dtype} {tuple(staged.shape)} on {staged.device}")
+                host = staged
+            else:
+                host = torch.from_numpy(np.ascontiguousarray(staged, np.uint16))
+            if self.device.type == "cuda":
+                staged_t = host.to(self.device, non_blocking=True)
+                self.h2d_event = torch.cuda.Event()
+                self.h2d_event.record(torch.cuda.current_stream(self.device))
+            else:
+                staged_t = host.clone()
+                self.h2d_event = None
+            # The device copy serves an escalation; the carry comes from the
+            # host.
+            self._carry = host[w : w + hs].numpy().copy()
+        with span("frontend.enqueue", index):
+            buf = decode_window_staged_packed(spec, staged_t, self._first)
+        meta = WindowMeta(staged_t, self._first, valid_blocks, index)
         self._first = False
         self._window_index += 1
         return self._dispatch((enqueue_fetch(buf), meta))
@@ -458,28 +464,22 @@ class WindowDecoder:
         windows must be completed in stream order. The streaming calls run
         it one window late; the wideband decoder runs it for each channel of
         a super-step."""
-        staged, first, valid_blocks, window_index, t0 = meta
-        if t0 is not None:
-            ms = (time.monotonic() - t0) * 1e3
-            ex = self.metrics.extra
-            ex["feed_to_emit_ms_last"] = round(ms, 2)
-            ex["feed_to_emit_ms_max"] = round(
-                max(ms, ex.get("feed_to_emit_ms_max", 0.0)), 2
-            )
-        spec = self.spec
-        res = unpack_results(spec, host_row)
-        if self._overflowed(res, spec):
-            # Escalate: re-decode this window with a high-capacity variant;
-            # the exact host path last.
-            self.metrics.hit_overflows += 1
-            big = self._big_spec()
-            big_buf = decode_window_staged_packed(big, staged, first)
-            res = unpack_results(big, big_buf.cpu().numpy())
-            if self._overflowed(res, big):
-                res = self._window_results_numpy(staged.cpu().numpy(), first)
-        msgs = self._parse_window(res, valid_blocks, window_index)
-        self.metrics.windows_decoded += 1
-        self.metrics.samples_in += spec.window
+        staged, first, valid_blocks, window_index = meta
+        with span("pipeline.parse", window_index):
+            spec = self.spec
+            res = unpack_results(spec, host_row)
+            if self._overflowed(res, spec):
+                # Escalate: re-decode this window with a high-capacity
+                # variant; the exact host path last.
+                self.metrics.hit_overflows += 1
+                big = self._big_spec()
+                big_buf = decode_window_staged_packed(big, staged, first)
+                res = unpack_results(big, big_buf.cpu().numpy())
+                if self._overflowed(res, big):
+                    res = self._window_results_numpy(staged.cpu().numpy(), first)
+            msgs = self._parse_window(res, valid_blocks, window_index)
+            self.metrics.windows_decoded += 1
+            self.metrics.samples_in += spec.window
         return msgs
 
     def _overflowed(self, res: Dict[str, object], spec=None) -> bool:

@@ -22,6 +22,8 @@ import subprocess
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
+from ..utils.observability import span
+
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -128,10 +130,11 @@ def build_many(libs: Sequence[Union[str, Library]]) -> Dict[str, pathlib.Path]:
 
 def load(lib: Union[str, Library]) -> ctypes.CDLL:
     """The loaded library (a name stands for the library of that source
-    alone), built at first use."""
+    alone), built at first use (the span ``setup.kernel_load``)."""
     name = lib if isinstance(lib, str) else lib.name
     loaded = _LIBS.get(name)
     if loaded is None:
-        loaded = ctypes.CDLL(str(build_many([lib])[name]))
+        with span("setup.kernel_load"):
+            loaded = ctypes.CDLL(str(build_many([lib])[name]))
         _LIBS[name] = loaded
     return loaded

@@ -42,7 +42,6 @@ them stay on that device.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -228,7 +227,6 @@ class MeshDecoder(WindowDecoder):
                 f"one on each of {[str(d) for d in self.devices]}; got "
                 f"{[(b.dtype, tuple(b.shape), str(b.device)) for b in sb]}")
         cuda = self.device.type == "cuda"
-        t0 = time.monotonic()
         # The ring: window 0 of shard s gets the tail of shard s - 1's last
         # window (shard 0: the carry); the last shard's tail is the next carry.
         left = self._carry
@@ -264,7 +262,7 @@ class MeshDecoder(WindowDecoder):
             s, kk = divmod(win, k)
             metas.append(WindowMeta(
                 shards[s][kk], self._first and win == 0,
-                win_valid if win_valid < wb else None, self._window_index + win, t0,
+                win_valid if win_valid < wb else None, self._window_index + win,
             ))
         self._window_index += n * k
         self._first = False

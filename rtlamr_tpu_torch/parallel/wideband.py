@@ -30,7 +30,6 @@ semantics.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -194,12 +193,12 @@ class WidebandDecoder:
         return wide_center_hz + channel_offsets_hz(self.chspec, self.cfg.sample_rate)
 
     def metrics_snapshot(self) -> dict:
-        """Counters summed across channels."""
-        agg: dict = {}
+        """The counters summed across channels, and the time since the
+        decoder was made (once: every channel's is the same)."""
+        agg: dict = {"elapsed_s": round(self._chan[0].metrics.elapsed(), 3)}
         for c in self._chan:
-            for k, v in c.metrics.snapshot().items():
-                if isinstance(v, (int, float)):
-                    agg[k] = agg.get(k, 0) + v
+            for k, v in c.metrics.counters().items():
+                agg[k] = agg.get(k, 0) + v
         return agg
 
     # -- state ----------------------------------------------------------------
@@ -351,7 +350,7 @@ class WidebandDecoder:
         packed, self._wb_hist, self._chan_tail, staged = _wideband_step(
             self.chspec, self.spec, self._wb_hist, u16, self._chan_tail, self._first
         )
-        meta = (staged, self._first, valid_blocks, self._window_index, time.monotonic())
+        meta = (staged, self._first, valid_blocks, self._window_index)
         self._first = False
         self._window_index += 1
         out: List[Triple] = []
@@ -362,12 +361,12 @@ class WidebandDecoder:
         return out
 
     def _complete(self, inflight) -> List[Triple]:
-        handle, (staged, first, valid_blocks, window_index, t0) = inflight
+        handle, (staged, first, valid_blocks, window_index) = inflight
         host = fetch(handle)  # ONE fetch for all channels
         out: List[Triple] = []
         for c, chan in enumerate(self._chan):
             msgs = chan.complete(host[c], WindowMeta(staged[c], first, valid_blocks,
-                                                     window_index, t0))
+                                                     window_index))
             out.extend((c, b, m) for b, m in msgs)
         if self.cross_channel_dedup:
             out = self._xchan.filter(out, on_drop=self._count_ghost)

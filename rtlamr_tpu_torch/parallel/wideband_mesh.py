@@ -47,7 +47,6 @@ its shards then run one after another on it.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -181,7 +180,6 @@ class WidebandMeshDecoder(WidebandDecoder):
         w, hs = spec.window, spec.halo_staged
         size = staged_geometry(spec).staged_samples
         cuda = self.device.type == "cuda"
-        t0 = time.monotonic()
         u16 = torch.from_numpy(np.ascontiguousarray(chunk).view(np.uint16))
         span = k * n * w  # stream elements of a time shard
         first = self._first
@@ -222,7 +220,7 @@ class WidebandMeshDecoder(WidebandDecoder):
                 event = torch.cuda.Event()
                 event.record(torch.cuda.current_stream(dev))
                 events.append(event)
-        meta = (staged, first, valid_blocks, self._window_index, t0)
+        meta = (staged, first, valid_blocks, self._window_index)
         self._window_index += self.tdev * k
         self._first = False
         out: List[Triple] = []
@@ -235,7 +233,7 @@ class WidebandMeshDecoder(WidebandDecoder):
     def _complete(self, inflight) -> List[Triple]:
         """Parse one dispatched super-batch in global window order, channel
         by channel within a window; the ghost dedup last."""
-        handle, (staged, first, valid_blocks, window_index, t0) = inflight
+        handle, (staged, first, valid_blocks, window_index) = inflight
         host = fetch(handle)  # ONE wait for every shard's rows
         k, c = self.scan_windows, self.channels_per_shard
         wb = self.spec.window // self.spec.block_size
@@ -250,7 +248,7 @@ class WidebandMeshDecoder(WidebandDecoder):
                 ci, r = divmod(ch, c)
                 msgs = chan.complete(host[ci, x, r, kk], WindowMeta(
                     staged[(ci, x)][r, kk], first and win == 0,
-                    win_valid if win_valid < wb else None, window_index + win, t0))
+                    win_valid if win_valid < wb else None, window_index + win))
                 out.extend((ch, b, m) for b, m in msgs)
         if self.cross_channel_dedup:
             out = self._xchan.filter(out, on_drop=self._count_ghost)

@@ -86,6 +86,20 @@ def test_wideband_matches_jax(capture, jax_stream):
     assert snap["windows_decoded"] == 3 * N and snap["messages_out"] == len(got)
 
 
+def test_wideband_metrics_snapshot_sums_counters_only(capture):
+    """The counters summed over the channels; the time since the decoder was
+    made taken once, not summed over them."""
+    dec = port()
+    dec.decode_capture(capture[0])
+    snap = dec.metrics_snapshot()
+    chans = [c.metrics for c in dec._chan]
+    assert set(snap) == {"elapsed_s", *chans[0].counters()}
+    for k in chans[0].counters():
+        assert snap[k] == sum(m.counters()[k] for m in chans), k
+    assert snap["samples_in"] == 3 * N * dec.spec.window
+    assert 0 < snap["elapsed_s"] <= round(chans[0].elapsed(), 3)
+
+
 def port_channel_streams(dec, wb):
     """The port's channelized u8 streams, chunked exactly like the decoder
     (super-steps of window_bytes, history carried, zero head)."""
