@@ -1,12 +1,14 @@
 """Single-card streaming window pipeline.
 
 Port of the JAX package's ``decoder/pipeline.py``: accumulate IQ into a
-large window -> one window program on the card (the CUDA decode stencil,
-then the search in PyTorch ops, ops/frontend.decode_window_staged_packed)
--> host-side parsing of the compacted candidates with the reference's
-per-block ordering, digest dedup and filter semantics. The window is a whole
-number of reference block sizes so the block-granular dedup behavior
-(main.go:252-292) is preserved exactly.
+large window -> one window program on the card
+(ops/frontend.decode_window_staged_packed: the CUDA decode stencil K1
+launched, then the search in PyTorch ops replayed from a CUDA graph
+captured once for the spec, device and stream; the first window of each
+runs it eagerly) -> host-side parsing of the compacted candidates with the
+reference's per-block ordering, digest dedup and filter semantics. The
+window is a whole number of reference block sizes so the block-granular
+dedup behavior (main.go:252-292) is preserved exactly.
 
 Between windows only the last ``halo = PacketLength + SymbolLength`` samples
 carry over (overlap-save).

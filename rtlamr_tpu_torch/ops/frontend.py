@@ -7,6 +7,17 @@ in a single device-to-host copy. The layout is byte-identical to the JAX
 package's ``pack_results`` (int32 fields little-endian), so the same
 :func:`unpack_results` reads either.
 
+On the card, :func:`decode_window_staged_packed` launches K1 as a kernel of
+its own, then replays the search and the packing from a CUDA graph: the
+search is sync-free with every shape fixed by the spec, so after K1 its
+several hundred small launches are one pure function of K1's three outputs.
+The graph is captured once for each (spec, device, current stream), the
+second time that key runs (the first runs eagerly and warms what a capture
+cannot do: the search's cached device tables, cub's scratch, CUDA's lazy
+module loads), and replayed for every later window: K1's outputs are copied
+into its static inputs and its packed buffer is copied out. A CPU tensor
+runs the search eagerly.
+
 The raw-u8 window API takes one window of u8 interleaved IQ, its halo
 first (``2 * (halo + window)`` bytes), as the JAX package's does:
 :func:`stage_iq` stages it on its device, :func:`decode_core`,
@@ -19,13 +30,15 @@ NumPy results.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..protocols.r900 import PAYLOAD_SYMBOLS
+from ..utils.observability import span
 from .search import search_slice
 from .spec import FrontendSpec, stage_host, staged_geometry
 from .stencil import decode_stencil
@@ -144,11 +157,70 @@ def pack_results(res: Dict[str, object]) -> torch.Tensor:
     return torch.cat(parts)
 
 
+class SearchGraph:
+    """The search and the packing of one spec, captured as a CUDA graph over
+    static copies of K1's three outputs; :meth:`replay` runs it on new
+    ones."""
+
+    def __init__(self, spec: FrontendSpec, bits: torch.Tensor, q6: Optional[torch.Tensor],
+                 mask2d: torch.Tensor):
+        dev = bits.device
+        self.bits, self.mask2d = bits.clone(), mask2d.clone()
+        self.q6 = None if q6 is None else q6.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        # A capture stream on the inputs' card (the graph's default one
+        # lies on whichever card made the first graph); "thread_local": a
+        # CUDA call of another thread does not break the capture.
+        with torch.cuda.device(dev), torch.cuda.graph(
+                self.graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
+            self.packed = pack_results(search_slice(spec, self.bits, self.q6, self.mask2d))
+
+    def replay(self, bits: torch.Tensor, q6: Optional[torch.Tensor],
+               mask2d: torch.Tensor) -> torch.Tensor:
+        """The packed buffer of the search over these K1 outputs: a fresh
+        copy, so a result the caller holds survives the next replay. Every
+        step is enqueued on the current stream of the inputs' card."""
+        self.bits.copy_(bits)
+        if q6 is not None:
+            self.q6.copy_(q6)
+        self.mask2d.copy_(mask2d)
+        self.graph.replay()
+        return self.packed.clone()
+
+
+#: (spec, device, current stream) -> None once it has run eagerly, then its
+#: :class:`SearchGraph` (graphs and their memory pools live as long as the
+#: process)
+SEARCH_GRAPHS: Dict[tuple, Optional[SearchGraph]] = {}
+_graphs_lock = threading.Lock()
+
+
 def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first: bool):
     """Staged-input window decode with all outputs in one u8 buffer (the
     hot path: the host stages raw IQ bytes into the StagedGeometry layout,
-    the device starts at the stencil)."""
-    return pack_results(decode_core_staged(spec, staged, first))
+    the device starts at the stencil).
+
+    K1 is launched (and counted) once a call; on the card the search is
+    then replayed from the key's :class:`SearchGraph` (spans
+    ``frontend.search_capture``, ``frontend.search_replay``), the first
+    call of a key running it eagerly. The bytes are the eager path's."""
+    bits, q6, mask2d = decode_stencil(spec, staged, first)
+    if staged.device.type != "cuda":
+        return pack_results(search_slice(spec, bits, q6, mask2d))
+    dev = staged.device
+    key = (spec, dev, torch.cuda.current_stream(dev).cuda_stream)
+    # Held across the replay too: two threads on one stream would otherwise
+    # interleave their copies into the static inputs.
+    with _graphs_lock:
+        if key not in SEARCH_GRAPHS:
+            SEARCH_GRAPHS[key] = None
+            return pack_results(search_slice(spec, bits, q6, mask2d))
+        graph = SEARCH_GRAPHS[key]
+        if graph is None:
+            with span("frontend.search_capture"):
+                graph = SEARCH_GRAPHS[key] = SearchGraph(spec, bits, q6, mask2d)
+        with span("frontend.search_replay"):
+            return graph.replay(bits, q6, mask2d)
 
 
 def decode_window_packed(spec: FrontendSpec, iq, first: bool, device: DeviceLike = None):

@@ -29,7 +29,11 @@ messages; its layers' spans are its children and share its window index:
                      host-to-device enqueue and the carry refresh
 - ``frontend.enqueue`` the window program's enqueue (its first in the
                      process is ``setup.first_window``, CUDA's lazy module
-                     loads with it)
+                     loads with it); inside it on the card,
+                     ``frontend.search_replay``: K1's outputs copied into
+                     the search's CUDA graph, its replay and the copy of
+                     its packed result, or ``frontend.search_capture``: the
+                     graph's capture, once a spec, device and stream
 - ``pipeline.fetch_wait`` the wait for the packed result on the host
 - ``pipeline.parse`` unpack, escalation, parse, filter and dedup
 - ``cli.emit``       encode, ring walk, dump and write of its messages
@@ -136,7 +140,7 @@ WINDOW = "cli.window"
 TOTALS_ONLY = frozenset({"cli.read"})
 #: the name of the first span of a name in the process
 FIRST = {"frontend.enqueue": "setup.first_window"}
-#: records the buffer holds; a traced benchmark run makes about 6 a window
+#: records the buffer holds; a traced benchmark run makes about 7 a window
 CAPACITY = 1 << 16
 
 
