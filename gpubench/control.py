@@ -1,8 +1,11 @@
 """The control of the correctness check: the plain reference put in the
 program's place and computed in the precision below the one that the
-configuration states (K1's function with float32 prefix sums, where the
-configuration states exact integer arithmetic), over the window a run of
-that seed checks. The comparison that decides ``correct`` has to reject it.
+configuration states, over the window a run of that seed checks: K1's
+function with float32 prefix sums, where the configuration states exact
+integer arithmetic; in a wideband stream also K2's with its DFT mix in
+bfloat16, where the configuration states float32, over the super-step a
+run of that seed checks. The comparison that decides ``correct`` has to
+reject it.
 
 Each seed prints one JSON line with the numbers the run would compare and
 their limits; ``correct`` must come out false on every seed. Run it at the
@@ -22,6 +25,7 @@ import sys
 from . import catalog, check
 from .harness import draw
 from .reference import stencil as ref_stencil
+from .traffic.feeder import SharedBytes
 from .traffic.plan import Stream, decoder_config, make_plan, render, window_blocks
 
 
@@ -29,14 +33,30 @@ def control_numbers(cell: catalog.Cell, seed: int, seconds: float = 20.0) -> dic
     """The compared numbers of the control, at the cell's own size."""
     config, traffic = cell.config, cell.traffic
     plan = make_plan(config, traffic, seed, seconds)
-    stream = Stream(plan, render(config, plan))
     index = draw(seed, *traffic["check_windows"], tag=5)
-    with check.pool() as pool:
-        geo = ref_stencil.window_geometry(decoder_config(config), window_blocks(traffic))
+    geo = ref_stencil.window_geometry(decoder_config(config), window_blocks(traffic))
+    first = index == 0
+    n = plan.channels
+    if n == 1:
+        stream = Stream(plan, render(config, plan))
         samples = ref_stencil.window_samples(geo, stream.samples_u16, index)
-        exact = check.k1_reference(pool, geo, samples, index == 0)
-    bits, q6, mask = ref_stencil.stencil(geo, samples, index == 0, "float32")
-    return check.compare_k1((bits, q6, mask, index == 0, index == 0), exact)
+        with check.pool() as pool:
+            exact = check.k1_reference(pool, geo, samples, first)
+        numbers = {}
+    else:
+        channel = draw(seed, 0, n - 1, tag=6)
+        shared = SharedBytes(plan.stream_bytes)
+        render(config, plan, shared.array)
+        with check.pool(shared) as pool:
+            rows = check.superstep_rows(pool, n, geo, index)
+            low = check.superstep_rows(pool, n, geo, index, mix="bfloat16")
+            samples = rows[channel]
+            exact = check.k1_reference(pool, geo, samples, first)
+        hs = geo.halo_staged
+        numbers = check.compare_k2((low[:, hs:], first, first), rows[:, hs:])
+    bits, q6, mask = ref_stencil.stencil(geo, samples, first, "float32")
+    numbers.update(check.compare_k1((bits, q6, mask, first, first), exact))
+    return numbers
 
 
 def main(argv=None) -> int:

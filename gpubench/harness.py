@@ -15,6 +15,15 @@ the feeder's accepting its connection. Generating the inputs comes before
 and is reported apart. After the window: the device memory peak, the check
 that no JAX module was loaded, then the reference and the comparison
 (``check.py``).
+
+A configuration with ``channels`` N > 1 is one wideband stream of N
+channels (``-channels N``): a block on the wire is N channel blocks'
+worth, ``2 N block_size`` bytes every ``block_size / sample_rate``
+seconds, and channel block b comes from wideband block b. The stream lives
+in a memory file that the feeder and the reference's workers map. The
+taps then also keep K2's rows for one super-step (``K2Tap``), and K1's
+index ``i`` is super-step ``i // N``, channel ``i % N`` (the super-step
+launches a window program a channel, in channel order).
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from .spans import short_name
 from .endpoints import StampSink
 from .reference import stencil as ref_stencil
 from .traffic import feeder
-from .traffic.plan import Stream, decoder_config, make_plan, render, window_blocks
+from .traffic.plan import Stream, decoder_config, make_plan, render, render_wideband, window_blocks
 
 #: top-level module names that must not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "rtlamr_tpu")
@@ -117,6 +126,38 @@ class K1Tap:
                 mask.cpu().numpy(), first)
 
 
+class K2Tap:
+    """Keeps a device copy of K2's channel rows for one super-step of the
+    timed call (the ``index``-th call of the name the wideband step calls,
+    ``parallel.wideband.channelize_requantize_fused``)."""
+
+    def __init__(self, wideband, index: int):
+        self.wideband, self.index = wideband, index
+        self.orig = wideband.channelize_requantize_fused
+        self.calls = 0
+        self.out = None
+
+    def __call__(self, spec, hist, wb, first, out=None, **kw):
+        res = self.orig(spec, hist, wb, first, out=out, **kw)
+        if self.calls == self.index:
+            self.out = (res.clone(), bool(first))
+        self.calls += 1
+        return res
+
+    def __enter__(self):
+        self.wideband.channelize_requantize_fused = self
+        return self
+
+    def __exit__(self, *exc):
+        self.wideband.channelize_requantize_fused = self.orig
+
+    def host(self):
+        if self.out is None:
+            return None
+        rows, first = self.out
+        return rows.cpu().numpy(), first
+
+
 @contextlib.contextmanager
 def cli_io():
     """``sys.stdout`` swapped for a :class:`StampSink` for the call."""
@@ -162,6 +203,7 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
             raise NoCard(f"want {cell.chips} CUDA card(s), have "
                          f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
     config, traffic = cell.config, cell.traffic
+    n = int(config.get("channels", 1))
 
     # Inputs (before set-up; not counted in it). A traced run streams on
     # past the window while the profile is taken; the profiler's start
@@ -169,20 +211,29 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     t = time.monotonic()
     extra = float(traffic.get("trace_extra_seconds", 0.0)) if trace else 0.0
     plan = make_plan(config, traffic, seed, seconds + extra)
-    stream = Stream(plan, render(config, plan))
+    shared = clipped = None
+    if n > 1:
+        shared = feeder.SharedBytes(plan.stream_bytes)
+        clipped = render_wideband(config, plan, shared.array)
+        stream = Stream(plan, shared.array)
+    else:
+        stream = Stream(plan, render(config, plan))
     inputs_s = time.monotonic() - t
     log(f"inputs: {len(plan.packets)} packets planted, {plan.stream_bytes} bytes "
-        f"of stream, {inputs_s:.3f} s")
+        f"of stream, {inputs_s:.3f} s" + (f", {clipped} components clipped" if n > 1 else ""))
 
     geo = ref_stencil.window_geometry(decoder_config(config), window_blocks(traffic))
+    # The window checked: a super-step, and a channel of it, in a wideband
+    # stream.
     check_index = draw(seed, *traffic["check_windows"], tag=5)
+    check_channel = draw(seed, 0, n - 1, tag=6) if n > 1 else 0
     e2e = catalog.readers("end_to_end", cell.end_to_end)
     per_layer = catalog.readers("metrics", cell.per_layer) if trace else {}
     spans = [s for m in per_layer.values() for s in m.SPANS]
     if trace:
         spans.append("rtlamr_tpu_torch.io.capture:RtlTcpSource.read")
     span_names = [short_name(s) for s in spans]
-    run = Run(rate=float(config["sample_rate"]))
+    run = Run(rate=float(n * config["sample_rate"]))
     argv = cell.flags + ["-format=json"]
     sub = None
     timer = None
@@ -190,7 +241,10 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     cli = importlib.import_module("rtlamr_tpu_torch.cli.main")
     from rtlamr_tpu_torch.ops import frontend
 
-    tap = K1Tap(frontend, check_index)
+    tap = K1Tap(frontend, check_index * n + check_channel)
+    k2tap = contextlib.nullcontext()
+    if n > 1:
+        k2tap = K2Tap(importlib.import_module("rtlamr_tpu_torch.parallel.wideband"), check_index)
     if trace:
         from .spans import HostTimer
         from .trace import SubWindow
@@ -201,21 +255,23 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
 
     ctx = multiprocessing.get_context("spawn")
     ctl, ctl_child = ctx.Pipe()
-    block_bytes = 2 * plan.block_size
-    block_s = plan.block_size / run.rate
+    block_bytes = 2 * plan.wide_block
+    block_s = plan.wide_block / run.rate
     lead = float(traffic["lead_seconds"])
     warm_blocks = traffic["warmup_blocks"]
-    proc = ctx.Process(
-        target=feeder.rtl_tcp_feeder,
-        args=(ctl_child, stream.bytes(0, warm_blocks * plan.block_size),
-              stream.bytes(0, plan.samples), block_bytes, block_s),
-        daemon=True)
+    if shared is None:
+        args = (ctl_child, stream.bytes(0, warm_blocks * plan.block_size),
+                stream.bytes(0, plan.samples), block_bytes, block_s)
+    else:
+        args = (ctl_child, shared, shared, block_bytes, block_s, warm_blocks)
+    proc = ctx.Process(target=feeder.rtl_tcp_feeder, args=args, daemon=True)
     proc.start()
     ctl_child.close()
     msgs: Dict[str, tuple] = {}
 
     def poll() -> None:
-        while ctl.poll():
+        # Nothing follows "done": past it the pipe reads as closed.
+        while "done" not in msgs and ctl.poll():
             m = ctl.recv()
             msgs[m[0]] = m[1:]
 
@@ -250,15 +306,19 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
         if timer is not None:
             timer.on_enter = on_enter
             timer.install(spans)
-        with tap, cli_io() as sink:
+        with tap, k2tap, cli_io() as sink:
             rc = cli.main(argv + [server], device=device)
         if rc != 0:
             raise RuntimeError(f"timed CLI call exited {rc}")
-        if not ctl.poll(120):
-            raise RuntimeError("the rtl_tcp feeder sent no report")
         while "done" not in msgs:
-            ctl.poll(120)
-            poll()
+            if not ctl.poll(120):
+                raise RuntimeError("the rtl_tcp feeder sent no report")
+            try:
+                poll()
+            except EOFError:
+                proc.join(10)
+                raise RuntimeError(f"the rtl_tcp feeder ended (exit code {proc.exitcode}) "
+                                   "without its report") from None
     finally:
         proc.join(60)
         if proc.is_alive():
@@ -282,8 +342,9 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
         due_at[p.index] = t0 + (k + 1) * block_s + (own[k] if k < len(own) else 0.0)
     due = [p for p in plan.packets if ws <= due_at[p.index] < ws + seconds]
     # Every packet the CLI could have emitted: found by the last block sent.
-    ref_packets = [p for p in plan.packets if plan.found_by(p) <= report["blocks"] * bs]
-    run.latency_cap_ms = (plan.samples / run.rate + 1.0) * 1e3
+    sent = report["blocks"] * bs
+    ref_packets = [p for p in plan.packets if plan.found_by(p) <= sent]
+    run.latency_cap_ms = (plan.stream_samples / run.rate + 1.0) * 1e3
     log(f"feeder: {report}")
     limit_ms = traffic["feeder_late_limit_blocks"] * report["block_ms"]
     if report["own_late_ms_max"] > limit_ms:
@@ -302,8 +363,9 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     if bad:
         raise ForbiddenModules(f"loaded in the run: {', '.join(bad[:20])}")
     kernel_out = tap.host()
+    k2_out = k2tap.host() if n > 1 else None
     trace_data = sub.reduce(span_names) if sub is not None else None
-    del tap
+    del tap, k2tap
     if device is None:
         import torch
 
@@ -311,24 +373,51 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
 
     # The reference, after the window.
     t = time.monotonic()
-    with check.pool() as pool:
-        seg = pool.map(check.decode_segment, check.segment_tasks(config, stream, ref_packets),
-                       chunksize=2)
-        samples = ref_stencil.window_samples(geo, stream.samples_u16, check_index)
-        kres = check.k1_reference(pool, geo, samples, check_index == 0)
-        expected = dict(seg)
+    order = None
+    strays: List[str] = []
+    if n == 1:
+        with check.pool() as pool:
+            seg = pool.map(check.decode_segment, check.segment_tasks(config, stream, ref_packets),
+                           chunksize=2)
+            samples = ref_stencil.window_samples(geo, stream.samples_u16, check_index)
+            kres = check.k1_reference(pool, geo, samples, check_index == 0)
+            expected = dict(seg)
+    else:
+        # The channels' streams, which the workers channelize into.
+        channels = feeder.SharedBytes(plan.stream_bytes)
+        with check.pool(shared, channels) as pool:
+            found = check.wideband_messages(pool, config, plan, sent)
+            rows = check.superstep_rows(pool, n, geo, check_index)
+            kres = check.k1_reference(pool, geo, rows[check_channel], check_index == 0)
+        del channels
+        # What the receiver may emit, in its order: block, then channel. A
+        # message of no planted meter is due when its block was.
+        planted = {p.meter_id: p.index for p in plan.packets}
+        expected = {p.index: [] for p in plan.packets}
+        order = {}
+        for b, c, mid, m in found:
+            order[m] = (b, c)
+            if mid in planted:
+                expected[planted[mid]].append(m)
+            elif ws <= t0 + (b + 1) * block_s < ws + seconds:
+                strays.append(m)
     reference_s = time.monotonic() - t
 
-    known = {m for v in expected.values() for m in v}
+    known = {m for v in expected.values() for m in v} | set(order or ())
     # A packet the reference does not decode is no answer due.
     due = [p for p in due if expected[p.index]]
-    want: List[str] = []
+    want: List[str] = list(strays)
     for p in due:
         want.extend(expected[p.index])
+    if order is not None:
+        want.sort(key=order.__getitem__)
     emitted = [check.canonical_line(line) for _, line in sink.lines]
-    numbers = check.compare_messages(want, emitted, known)
+    numbers = check.compare_messages(want, emitted, known, order)
     numbers.update(check.compare_k1(
         None if kernel_out is None else (*kernel_out, check_index == 0), kres))
+    if n > 1:
+        numbers.update(check.compare_k2(
+            None if k2_out is None else (*k2_out, check_index == 0), rows[:, geo.halo_staged:]))
     stamps: Dict[str, float] = {}
     for (stamp, _), m in zip(sink.lines, emitted):
         stamps.setdefault(m, stamp)
@@ -351,6 +440,13 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
                 metrics[name] = {"value": v, "unit": cell.units[name]}
     else:
         trace_data.reference = {"k1_geo": geo, "k1_live_words": kres[3]}
+        if n > 1:
+            from . import yardstick
+            from .reference.channelizer import TAPS
+
+            # K2's work on one super-step: what a k2 roofline reads.
+            trace_data.reference["k2_shape"] = (n, TAPS, geo.window)
+            trace_data.reference["k2_work"] = yardstick.channelizer_work(n, TAPS, geo.window)
         if device is None:
             from . import yardstick
 
@@ -375,6 +471,8 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     result["reference_s"] = reference_s
     result["window_s"] = run.window_s
     result["feeder"] = {k: v for k, v in report.items() if k != "commands"}
+    if n > 1:
+        result["clipped"] = clipped
     for name, v in numbers.items():
         log(f"check {name} = {v} (limit 0)")
     result["checks"] = {name: {"value": v, "limit": 0} for name, v in numbers.items()}

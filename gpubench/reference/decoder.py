@@ -129,6 +129,9 @@ class ReferenceDecoder:
         ok = np.ones(n, dtype=bool)
         for k, bit in enumerate(preamble_bits):
             ok &= self.quantized[k * sl : k * sl + n] == bit
+            # No position left: no later bit can bring one back.
+            if k % 8 == 7 and not ok.any():
+                break
         return np.nonzero(ok)[0]
 
     def _slice(self, indices: np.ndarray, n_symbols: int) -> List[Candidate]:
@@ -143,10 +146,18 @@ class ReferenceDecoder:
         return out
 
     def _r900_filter(self) -> None:
-        """R900 3-kernel filter bank + 6-ary quantize (r900/r900.go:82-150)."""
+        """R900 3-kernel filter bank + 6-ary quantize (r900/r900.go:82-150).
+
+        In ``"int"`` arithmetic every output is an exact integer function
+        of the 4 ChipLength samples from its position, so the positions
+        whose samples all lie in the shifted part of the buffer keep the
+        previous block's outputs, shifted by one block, and only the last
+        BlockSize positions are computed (from a prefix sum that starts
+        where they read): the same bytes as filtering the whole buffer."""
         cfg = self.cfg
         cl = cfg.chip_length
         limit = cfg.buffer_length - 4 * cl
+        start = 0
         if self.arithmetic == "float32":
             csum = np.concatenate(
                 [
@@ -155,7 +166,11 @@ class ReferenceDecoder:
                 ]
             )
         else:
-            csum = np.concatenate([np.zeros(1, np.int64), np.cumsum(self.r900_signal)])
+            start = cfg.packet_length - 4 * cl
+            bs = cfg.block_size
+            self.r900_quantized[:start] = self.r900_quantized[bs : bs + start]
+            csum = np.concatenate([np.zeros(1, np.int64), np.cumsum(self.r900_signal[start:])])
+            limit -= start
         c0 = csum[:limit]
         c1 = 2 * csum[cl : cl + limit]
         c2 = 2 * csum[2 * cl : 2 * cl + limit]
@@ -164,14 +179,14 @@ class ReferenceDecoder:
         a0 = c2 - c4 - c0  # 1100
         a1 = c1 - c2 + c3 - c4 - c0  # 1010
         a2 = c1 - c3 + c4 - c0  # 1001
-        mags = np.stack([np.abs(a0), np.abs(a1), np.abs(a2)])
-        # First-max argmax matches the strict > comparisons of r900.go:133-143.
-        argmax = np.argmax(mags, axis=0).astype(np.uint8)
-        chosen = np.take_along_axis(
-            np.stack([a0, a1, a2]), argmax[None, :].astype(np.int64), axis=0
-        )[0]
+        m0, m1, m2 = np.abs(a0), np.abs(a1), np.abs(a2)
+        # The first of the largest, as the strict > comparisons of
+        # r900.go:133-143 choose.
+        argmax = (m1 > m0).astype(np.uint8)
+        argmax[m2 > np.maximum(m0, m1)] = 2
+        chosen = np.where(argmax == 0, a0, np.where(argmax == 1, a1, a2))
         q = argmax + np.where(chosen > 0, 3, 0).astype(np.uint8)
-        self.r900_quantized[:limit] = q
+        self.r900_quantized[start : start + limit] = q
 
     def _r900_symbols(self, idx: int) -> np.ndarray:
         """42 payload symbols at stride 4*ChipLength (r900/r900.go:187-193)."""

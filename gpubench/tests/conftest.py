@@ -53,6 +53,25 @@ def tiny(cell_name: str):
     return cell
 
 
+def wide_tiny(channel_plan: str = "parallel"):
+    """The test-only wideband cell (``wb4_test.json`` and ``wb4_mix.json``
+    beside this file): 4 channels at chip length 8, paced below real time,
+    its packets placed by ``channel_plan``."""
+    import json
+
+    from gpubench import catalog
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "wb4_test.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(here, "wb4_mix.json")) as f:
+        t = json.load(f)
+    t["channel_plan"] = channel_plan
+    ends = ["setup_s", "emit_latency_p95_ms", "emit_latency_p50_ms"]
+    units = {"setup_s": "s", "emit_latency_p95_ms": "ms", "emit_latency_p50_ms": "ms"}
+    return catalog.Cell(f"wb4_test.{channel_plan}", cfg, t, 1, ends, [], units)
+
+
 @pytest.fixture
 def run_tiny():
     """Run a tiny cell on the CPU; returns the result line's object."""

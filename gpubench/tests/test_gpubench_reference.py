@@ -64,3 +64,46 @@ def test_controls_are_rejected():
     low = rs.stencil(geo, s, False, "float32")
     numbers = check.compare_k1((*low, False, False), exact)
     assert sum(numbers.values()) > 0, numbers
+
+
+def _full_r900_quantized(dec):
+    """The R900 filter bank over the decoder's whole buffer (the
+    reference's every-block form), in exact integers."""
+    cfg = dec.cfg
+    cl = cfg.chip_length
+    limit = cfg.buffer_length - 4 * cl
+    csum = np.concatenate([np.zeros(1, np.int64), np.cumsum(dec.r900_signal)])
+    c = [csum[k * cl : k * cl + limit] * (1 if k in (0, 4) else 2) for k in range(5)]
+    a = np.stack([c[2] - c[4] - c[0], c[1] - c[2] + c[3] - c[4] - c[0], c[1] - c[3] + c[4] - c[0]])
+    am = np.argmax(np.abs(a), axis=0)
+    chosen = np.take_along_axis(a, am[None, :], axis=0)[0]
+    return (am + np.where(chosen > 0, 3, 0)).astype(np.uint8)
+
+
+def test_oracle_block_filter_equals_whole_buffer_filter():
+    """The oracle filters only the newest block's R900 positions and stops a
+    preamble search once no position is left: at every block its R900
+    stream equals the whole buffer's filter, and its messages are found."""
+    from gpubench.reference import packets as pk
+    from gpubench.reference.decoder import ReferenceDecoder
+
+    dec = ReferenceDecoder([new_parser(n, 8) for n in NAMES], arithmetic="int")
+    cfg = dec.cfg
+    bs, rng = cfg.block_size, np.random.default_rng(4)
+    n_blocks = 3 * cfg.buffer_length // bs
+    i = rng.normal(128, 3, n_blocks * bs)
+    bursts = [(pk.r900_chips(pk.make_r900_symbols(123_456 + k)), (2 + 9 * k) * bs + 100)
+              for k in range(3)]
+    bursts.append((pk.manchester_chips(pk.make_scm_bits(7_654_321, consumption=9)), 30 * bs))
+    for chips, at in bursts:
+        span = np.repeat(chips, 8)
+        i[at : at + span.size] += 100 * span
+    q = rng.normal(127, 3, i.size)
+    iq = np.stack([i, q], axis=1).clip(0, 255).round().astype(np.uint8).reshape(-1)
+    found = []
+    for b in range(n_blocks):
+        for _, msgs in dec.decode_block(iq[b * cfg.block_size2 : (b + 1) * cfg.block_size2]):
+            found.extend(m.meter_id() for m in msgs)
+        limit = cfg.buffer_length - 4 * cfg.chip_length
+        assert np.array_equal(dec.r900_quantized[:limit], _full_r900_quantized(dec)), b
+    assert {123_456, 123_457, 123_458, 7_654_321} <= set(found)

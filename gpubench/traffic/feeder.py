@@ -12,15 +12,19 @@ recorded and reported.
 
 It runs in a process of its own (``multiprocessing``, spawn), which imports
 neither the receiver nor torch. CLOCK_MONOTONIC (``time.monotonic``) is
-shared with the harness's process.
+shared with the harness's process. A one-channel stream is handed to it as
+an array (pickled into the process); a wideband one, a GiB or more, as
+:class:`SharedBytes`, which the process maps without a copy.
 """
 
 from __future__ import annotations
 
+import mmap
+import os
 import socket
 import struct
 import time
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -30,6 +34,39 @@ GREETING = b"RTL0" + struct.pack(">II", 5, 29)
 START_DELAY_S = 0.2
 #: the feeder sleeps until this long before a send is due, then spins
 SPIN_S = 0.0015
+
+
+class SharedBytes:
+    """Bytes that the harness and the feeder map alike: an anonymous memory
+    file (``memfd_create``), so nothing is written to disk or left at a
+    path. ``SharedBytes(size)`` makes it; an argument of a spawned process,
+    it arrives there as a map of the same memory (its descriptor is handed
+    over while the process is spawned). ``array`` is its u8 view; the
+    memory goes with the last view of it and the last process."""
+
+    def __init__(self, size: int, fd: Optional[int] = None):
+        self.size = size
+        if fd is None:
+            fd = os.memfd_create("gpubench-stream")
+            os.ftruncate(fd, size)
+        self.fd = fd
+        self.array = np.frombuffer(mmap.mmap(fd, size), np.uint8)
+
+    def __reduce__(self):
+        from multiprocessing import reduction
+
+        return _attach, (reduction.DupFd(self.fd), self.size)
+
+    def __del__(self, _close=os.close):
+        _close(self.fd)
+
+
+def _attach(dup, size: int) -> SharedBytes:
+    return SharedBytes(size, dup.detach())
+
+
+def _u8(data) -> np.ndarray:
+    return data.array if isinstance(data, SharedBytes) else np.ascontiguousarray(data)
 
 
 def schedule(n_blocks: int, t0: float, block_seconds: float) -> np.ndarray:
@@ -79,10 +116,12 @@ def _commands(conn: socket.socket, seen: List[tuple], pending: bytearray) -> boo
     return True
 
 
-def rtl_tcp_feeder(ctl, warm: np.ndarray, stream: np.ndarray, block_bytes: int,
-                   block_seconds: float) -> None:
-    """Open loop. Reports on ``ctl``: ``("port", port)``; after the timed
-    connection's accept ``("t0", t0, accept_time)``; at the end
+def rtl_tcp_feeder(ctl, warm, stream, block_bytes: int, block_seconds: float,
+                   warm_blocks: Optional[int] = None) -> None:
+    """Open loop. ``warm`` and ``stream`` are arrays or :class:`SharedBytes`;
+    the warm-up connection gets at most ``warm_blocks`` blocks of ``warm``
+    (all of it by default). Reports on ``ctl``: ``("port", port)``; after
+    the timed connection's accept ``("t0", t0, accept_time)``; at the end
     ``("done", report)``. A ``"stop"`` from the harness ends the paced
     stream early (a traced run, once its profile is taken)."""
     srv = socket.socket()
@@ -100,8 +139,10 @@ def rtl_tcp_feeder(ctl, warm: np.ndarray, stream: np.ndarray, block_bytes: int,
                 conn.sendall(GREETING)
                 seen: List[tuple] = []
                 pending = bytearray()
-                view = memoryview(np.ascontiguousarray(data)).cast("B")
+                view = memoryview(_u8(data)).cast("B")
                 n_blocks = len(view) // block_bytes
+                if not paced and warm_blocks is not None:
+                    n_blocks = min(n_blocks, warm_blocks)
                 if not paced:
                     conn.sendall(view[: n_blocks * block_bytes])
                 else:

@@ -1,12 +1,13 @@
-"""The card's peaks and the work of K1, counted from the problem.
+"""The card's peaks and the work of K1 and K2, counted from the problem.
 
-The roofline share of ``metrics/k1_roofline.py`` divides this bound by the
-kernel's device time. The counts are of the work the function needs on the window's
-shapes and data, whatever kernel computes it, so a change to the program
-cannot move them: bytes read and written once at the HBM rate against
-operations at the card's issue rate, the larger of the two. Copied from the
-receiver's ``chip_smoke.py`` (``stencil_work``, ``card_rate``), which also
-documents each count.
+A roofline share (``metrics/k1_roofline.py``) divides such a bound by the
+kernel's device time. The counts are of the work the function needs on the
+timed shapes and data, whatever kernel computes it, so a change to the
+program cannot move them: bytes read and written once at the HBM rate
+against operations at the card's issue rate, the larger of the two. Copied
+from the receiver's ``chip_smoke.py`` (``stencil_work``,
+``channelizer_work``, ``card_rate``), which also documents each count; the
+channelizer's mix is counted here from the reference's own tables.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ HBM_BYTES_PER_S = 3.35e12
 #: clock per SM on Hopper (16 INT32 lanes in each of 4 partitions; CUDA C++
 #: Programming Guide, throughput table, compute capability 9.0).
 INT32_PER_CLOCK_PER_SM = 64
+#: float32 add and multiply instructions per clock per SM on Hopper (32
+#: FP32 lanes in each of 4 partitions, the same table), the SM's whole issue
+#: width. The channelizer may fuse nothing, so each product and sum is one
+#: such instruction, not half of a data-sheet FMA.
+FP32_INSTR_PER_CLOCK_PER_SM = 128
 #: Row width and tile cap of the receiver's staged window buffer
 #: (``ops/spec.py`` LANES, and the tile_rows rule of make_frontend_spec).
 LANES = 128
@@ -93,3 +99,43 @@ def stencil_work(geo, live_words, int_rate: float) -> dict:
     t_ops = ops / int_rate * 1e3
     return {"bytes": n_bytes, "int_ops": ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def mix_op_count(n: int):
+    """(products, sums) a frame of the DFT mix of ``n`` channels in its
+    cheapest exact form, from the float32 tables: for each branch two
+    products (of its re and im input) for each distinct coefficient
+    magnitude, none for 1 and nothing for 0; one sum for each nonzero
+    coefficient's two accumulations, less the 2 n copies that start the
+    accumulators (branch 0's coefficients are all 1 and 0)."""
+    from .reference.channelizer import mix_tables
+
+    er, ei = mix_tables(n)
+    products = sums = 0
+    for b in range(n):
+        mags = {abs(float(v)) for v in np.concatenate([er[:, b], ei[:, b]])} - {0.0, 1.0}
+        products += 2 * len(mags)
+        sums += 2 * (np.count_nonzero(er[:, b]) + np.count_nonzero(ei[:, b]))
+    return products, sums - 2 * n
+
+
+def channelizer_work(n: int, taps: int, frames: int, rate: float = 0.0) -> dict:
+    """K2's work on ``frames`` frames of ``n`` channels with ``taps`` taps a
+    branch: the chunk and the history read once and the n channel rows
+    written once (u16 a sample); float32 instructions, none fused, each
+    part in its cheapest exact form: 4 n taps - 2 n a frame for the
+    branches (a product and a sum a tap and component, each chain started
+    by its first product), 6 n for the DC removal, 9 n for the requantize,
+    and the mix of :func:`mix_op_count`. With ``rate`` (instructions a
+    second), the bound: the larger of the bytes' time at the HBM rate and
+    the instructions' time, in ms."""
+    muls, adds = mix_op_count(n)
+    n_bytes = 4 * n * frames + 2 * n * taps
+    instr = frames * (4 * n * taps - 2 * n + 6 * n + 9 * n + muls + adds)
+    out = {"bytes": n_bytes, "f32_instr": instr}
+    if rate:
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_instr = instr / rate * 1e3
+        out.update(bytes_ms=t_bytes, f32_instr_ms=t_instr, bound_ms=max(t_bytes, t_instr),
+                   bound_by="bytes" if t_bytes >= t_instr else "operations")
+    return out
