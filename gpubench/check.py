@@ -12,12 +12,18 @@ Every comparison is exact (limit 0):
   the seed, against ``reference/stencil.py``;
 - in a wideband stream, K2's channel rows for one super-step of the timed
   path, drawn from the seed, against ``reference/channelizer.py``
-  (``k2_frames_diff``), and K1's window of one channel of that super-step.
+  (``k2_frames_diff``), and K1's window of one channel of that super-step;
+- the stream the receiver was given: the native ingest drops the newest
+  bytes when its ring is full, and past a drop the receiver decodes a
+  spliced stream that the reference never had; the bytes it dropped in the
+  timed call (``ingest_dropped_bytes``).
 
 The reference runs after the window, on worker processes. In a
 one-channel stream each worker decodes one packet's stretch of the stream,
 from two blocks before it to two blocks past the sample it is found by (a
-decoder finds a packet once it holds PacketLength samples from its start).
+decoder finds a packet once it holds PacketLength samples from its start),
+or to the last sample sent: a packet begun before the stream's end, found
+by the CLI's flush from what was sent, is known too.
 In a wideband stream the workers channelize everything the receiver read
 and decode every channel whole, in chunks (each decoded from a buffer's
 length before it): the reference is every message the receiver may emit,
@@ -213,15 +219,16 @@ def _names_for(config: dict, kind: str) -> tuple:
     return fewer if same else names
 
 
-def segment_tasks(config: dict, stream, packets) -> list:
-    """One oracle task for each planted packet of ``packets``."""
+def segment_tasks(config: dict, stream, packets, sent: int) -> list:
+    """One oracle task for each planted packet of ``packets``, its stretch
+    cut at ``sent``, the samples the receiver read."""
     plan = stream.plan
     bs = plan.block_size
     names_by_kind = {k: _names_for(config, k) for k in {p.kind for p in packets}}
     tasks = []
     for p in packets:
         lo = max((p.offset // bs - MARGIN_BLOCKS) * bs, 0)
-        hi = min(-(-plan.found_by(p) // bs) * bs + MARGIN_BLOCKS * bs, plan.samples)
+        hi = min(-(-plan.found_by(p) // bs) * bs + MARGIN_BLOCKS * bs, plan.samples, sent)
         tasks.append((p.index, names_by_kind[p.kind], plan.chip_length, p.meter_id,
                       stream.bytes(lo, hi)))
     return tasks

@@ -8,10 +8,18 @@ process (``traffic/feeder.py``): an rtl_tcp server on ``127.0.0.1``
 (``-server``), pacing one block at a time on an absolute schedule; the
 window is ``seconds`` of that schedule after ``lead_seconds``.
 
+Every run also reads the receiver's ingest counter of bytes dropped after
+each read of the timed call (:class:`IngestTap`): past a drop the receiver
+decodes a stream the reference never had, so any drop fails the run
+(``ingest_dropped_bytes``). A traced run starts its profiler once in
+set-up, so that the timed call's start does not hold the read long enough
+to fill the ingest's ring.
+
 Set-up is everything before the window that the program needs: imports,
 the CUDA context, the kernels (built on a checkout's first run), a warm-up
-CLI call with the same flags over a short stream, and the timed call up to
-the feeder's accepting its connection. Generating the inputs comes before
+CLI call with the same flags over a short stream, in a traced run the
+profiler's first session, and the timed call up to the feeder's accepting
+its connection. Generating the inputs comes before
 and is reported apart. After the window: the device memory peak, the check
 that no JAX module was loaded, then the reference and the comparison
 (``check.py``).
@@ -158,6 +166,35 @@ class K2Tap:
         return rows.cpu().numpy(), first
 
 
+class IngestTap:
+    """Reads ``dropped_bytes()`` of the ``RtlTcpSource`` after every read of
+    the timed call (the CLI loop's only read of a live stream): the native
+    ingest drops the newest bytes when its ring is full and counts them; a
+    client with no counter (the Python one) drops nothing, as TCP's
+    back-pressure holds the sender."""
+
+    def __init__(self, capture):
+        self.owner = capture.RtlTcpSource
+        #: bytes dropped, at the last read
+        self.dropped = 0
+
+    def __enter__(self):
+        # Taken here, so a traced run's span around the read stays inside.
+        self.orig = orig = self.owner.read
+
+        def read(source, *args, **kwargs):
+            try:
+                return orig(source, *args, **kwargs)
+            finally:
+                self.dropped = int(source.dropped_bytes())
+
+        self.owner.read = read
+        return self
+
+    def __exit__(self, *exc):
+        self.owner.read = self.orig
+
+
 @contextlib.contextmanager
 def cli_io():
     """``sys.stdout`` swapped for a :class:`StampSink` for the call."""
@@ -242,6 +279,7 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     from rtlamr_tpu_torch.ops import frontend
 
     tap = K1Tap(frontend, check_index * n + check_channel)
+    ingest = IngestTap(importlib.import_module("rtlamr_tpu_torch.io.capture"))
     k2tap = contextlib.nullcontext()
     if n > 1:
         k2tap = K2Tap(importlib.import_module("rtlamr_tpu_torch.parallel.wideband"), check_index)
@@ -268,6 +306,8 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     proc.start()
     ctl_child.close()
     msgs: Dict[str, tuple] = {}
+    #: seconds the profiler's start held the read it started in
+    trace_start_s = None
 
     def poll() -> None:
         # Nothing follows "done": past it the pipe reads as closed.
@@ -285,8 +325,11 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
             rc = cli.main(argv + [server], device=device)
         if rc != 0:
             raise RuntimeError(f"warm-up CLI call exited {rc}")
+        if sub is not None:
+            sub.warm()
 
         def on_enter(name: str) -> None:
+            nonlocal trace_start_s
             if name != READ_SPAN:
                 return
             if "t0" not in msgs:
@@ -299,14 +342,16 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
                 sub.open_window()
             if not sub.started and now >= ws + seconds:
                 sub.start()
+                trace_start_s = sub.t_up - now
             elif sub.started and not sub.stopped and now - sub.t_up >= trace_s:
-                sub.stop()
+                # The feeder first: the stream ends while the profiler stops.
                 ctl.send("stop")
+                sub.stop()
 
         if timer is not None:
             timer.on_enter = on_enter
             timer.install(spans)
-        with tap, k2tap, cli_io() as sink:
+        with tap, k2tap, ingest, cli_io() as sink:
             rc = cli.main(argv + [server], device=device)
         if rc != 0:
             raise RuntimeError(f"timed CLI call exited {rc}")
@@ -341,9 +386,10 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
         k = (p.end - 1) // bs
         due_at[p.index] = t0 + (k + 1) * block_s + (own[k] if k < len(own) else 0.0)
     due = [p for p in plan.packets if ws <= due_at[p.index] < ws + seconds]
-    # Every packet the CLI could have emitted: found by the last block sent.
+    # Every packet the CLI could have emitted: begun before the last block
+    # sent (the reference decodes what was sent, as the CLI's flush does).
     sent = report["blocks"] * bs
-    ref_packets = [p for p in plan.packets if plan.found_by(p) <= sent]
+    ref_packets = [p for p in plan.packets if p.offset < sent]
     run.latency_cap_ms = (plan.stream_samples / run.rate + 1.0) * 1e3
     log(f"feeder: {report}")
     limit_ms = traffic["feeder_late_limit_blocks"] * report["block_ms"]
@@ -377,8 +423,8 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     strays: List[str] = []
     if n == 1:
         with check.pool() as pool:
-            seg = pool.map(check.decode_segment, check.segment_tasks(config, stream, ref_packets),
-                           chunksize=2)
+            tasks = check.segment_tasks(config, stream, ref_packets, sent)
+            seg = pool.map(check.decode_segment, tasks, chunksize=2)
             samples = ref_stencil.window_samples(geo, stream.samples_u16, check_index)
             kres = check.k1_reference(pool, geo, samples, check_index == 0)
             expected = dict(seg)
@@ -413,6 +459,8 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
         want.sort(key=order.__getitem__)
     emitted = [check.canonical_line(line) for _, line in sink.lines]
     numbers = check.compare_messages(want, emitted, known, order)
+    # Past a drop the receiver decoded a stream the reference never had.
+    numbers["ingest_dropped_bytes"] = ingest.dropped
     numbers.update(check.compare_k1(
         None if kernel_out is None else (*kernel_out, check_index == 0), kres))
     if n > 1:
@@ -470,6 +518,9 @@ def run_cell(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     result["inputs_s"] = inputs_s
     result["reference_s"] = reference_s
     result["window_s"] = run.window_s
+    if trace:
+        result["trace_start_s"] = trace_start_s
+        log(f"trace: the profiler's start held the read {trace_start_s} s")
     result["feeder"] = {k: v for k, v in report.items() if k != "commands"}
     if n > 1:
         result["clipped"] = clipped

@@ -1,7 +1,8 @@
 """The whole run on the CPU at a tiny size, with the timed path broken
 underneath, sees ``correct`` come out false: once for each fault a cell can
 have (its state returned unchanged, half of its answers left out, an
-answer altered where it is produced, a kernel's output altered; a cell on
+answer altered where it is produced, an answer added that the stream does
+not hold, a kernel's output altered; a cell on
 one card has no exchange between cards to leave out), and true when
 nothing is broken. A wideband cell adds its own: a frame of K2's output
 altered, a message put on another channel, the ghosts on neighbouring
@@ -66,6 +67,29 @@ def _answer_altered(monkeypatch):
         return out
 
     monkeypatch.setattr(WindowDecoder, "_parse_window", altered)
+
+
+def _one_line_planted(monkeypatch):
+    """One message the stream does not hold: beside the first message the
+    window decoder finds at block 160 or later (past any warm-up stream), a
+    copy of it with its first number field off by one."""
+    from rtlamr_tpu_torch.decoder.pipeline import WindowDecoder
+
+    orig = WindowDecoder._parse_window
+    planted = []
+
+    def plant(self, res, valid_blocks, window_index):
+        out = orig(self, res, valid_blocks, window_index)
+        late = [(b, msg) for b, msg in out if b >= 160]
+        if late and not planted:
+            b, msg = late[0]
+            f = next(f.name for f in dataclasses.fields(msg)
+                     if isinstance(getattr(msg, f.name), int))
+            planted.append(b)
+            out = out + [(b, dataclasses.replace(msg, **{f: getattr(msg, f) + 1}))]
+        return out
+
+    monkeypatch.setattr(WindowDecoder, "_parse_window", plant)
 
 
 def _k1_altered(monkeypatch):
@@ -161,12 +185,14 @@ CASES = [
     ("nb_all.live16", _half_the_messages),
     ("nb_all.live16", _answer_altered),
     ("nb_all.live16", _k1_altered),
+    ("nb_all.live16", _one_line_planted),
     ("wb4_test.parallel", _k1_altered),
     ("wb4_test.parallel", _half_the_messages),
     ("wb4_test.parallel", _k2_altered),
     ("wb4_test.parallel", _channel_relabelled),
     ("wb4_test.parallel", _ghosts_dropped),
     ("wb4_test.parallel", _one_message_withheld),
+    ("wb4_test.parallel", _one_line_planted),
 ]
 
 

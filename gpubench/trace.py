@@ -7,11 +7,14 @@ has it, the spans of ``spans.py`` time the host layers. When the window's
 seconds are up (at the next source read) the profiler starts, and it stops
 ``trace_seconds`` after it is up (again at a source read); the run then
 ends. The host metrics
-take the first phase, the device metrics the second: a process that has
-run the profiler launches kernels more slowly, and starting it takes
-seconds. Each profiler session opens with ``OPENERS`` spin kernels on each
-card, which the reduction leaves out: a session of an older process can
-lose its first kernels' records.
+take the first phase, the device metrics the second: kernels launch more
+slowly while the profiler records. The process's first
+profiler session loads and starts the device tracer, which takes seconds;
+set-up runs it (:meth:`SubWindow.warm`), so the start on the CLI's thread
+holds the read for a fraction of a second and the receiver's ingest ring
+does not fill meanwhile. Each profiler session opens with ``OPENERS`` spin
+kernels on each card, which the reduction leaves out: a session of an
+older process can lose its first kernels' records.
 """
 
 from __future__ import annotations
@@ -75,23 +78,35 @@ class SubWindow:
         if self.host_from is None:
             self.host_from = self.timer.snapshot()
 
-    def start(self) -> None:
+    def _session(self):
+        """A profiler session, entered and opened by the spin kernels."""
         import torch
-        from torch.profiler import ProfilerActivity, profile, record_function
+        from torch.profiler import ProfilerActivity, profile
 
-        self.started = True
-        self.prof_from = self.timer.snapshot()
         for d in self.devices:
             torch.cuda.synchronize(d)
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.devices else [])
-        self.prof = profile(activities=activities)
-        self.prof.__enter__()
+        prof = profile(activities=activities)
+        prof.__enter__()
         for d in self.devices:
             with torch.cuda.device(d):
                 for _ in range(OPENERS):
                     torch.cuda._sleep(OPENER_CYCLES)
         for d in self.devices:
             torch.cuda.synchronize(d)
+        return prof
+
+    def warm(self) -> None:
+        """A throwaway session, in set-up: the process's first one starts
+        the device tracer."""
+        self._session().__exit__(None, None, None)
+
+    def start(self) -> None:
+        from torch.profiler import record_function
+
+        self.started = True
+        self.prof_from = self.timer.snapshot()
+        self.prof = self._session()
         self._mark = record_function(MARK)
         self._mark.__enter__()
         self.t_up = time.monotonic()
