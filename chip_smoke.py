@@ -24,6 +24,16 @@ a non-zero exit code and no result line:
             CLI's chunk size; the decoded set equals the planted set. Prints
             samples/s, where the host time of a window goes, and the device
             time and kernel count of one window program.
+   lookahead  the window program's look-ahead (each streamed window's
+            search of the next window's first blocks): its mask kernel
+            against ``masks_plain`` on K1's bits of the same window, byte
+            for byte, at the benchmark cell's shape (all four protocols,
+            chip length 72, 16-block windows) and ``-latency``'s 4-block
+            windows on planted, random and all-zero windows, and all six
+            types at chip length 8; then the decode phase's capture through
+            the CLI's ``-latency -windowblocks=16``, launch counts set to 0
+            just before: the throughput preset's records, the mask kernel
+            launched once a window looked ahead, the look-ahead engaged.
 5. batch    the same capture device-resident through
             ``decode_staged_batch``: the same message stream; and
             ``run_window`` on the raw u8 bytes of windows 0 and 1 (halo
@@ -125,6 +135,11 @@ a non-zero exit code and no result line:
             reference's order), the runtime tap loop's time at the same
             shape (checked byte-equal too) beside the compiled-in taps', and
             what ``-Xptxas -v`` says about each instantiation.
+   lookahead_time  the mask kernel's time at the cell's shape (CUDA
+            events around the wrapper and torch.profiler's record of the
+            kernel, L2 flushed before each launch), the plain version's,
+            and the bound (bytes at the HBM rate against the bank's
+            integer operations at the card's int32 rate).
 15. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
@@ -177,8 +192,13 @@ from rtlamr_tpu_torch.ops.channelizer_fused import (
 )
 from rtlamr_tpu_torch.ops.channelizer_mix import mix_op_count
 from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed, run_window, unpack_results
-from rtlamr_tpu_torch.ops.spec import make_frontend_spec, stage_host, staged_geometry
-from rtlamr_tpu_torch.ops.stencil import decode_stencil, stencil_plain
+from rtlamr_tpu_torch.ops.spec import (
+    lookahead_geometry,
+    make_frontend_spec,
+    stage_host,
+    staged_geometry,
+)
+from rtlamr_tpu_torch.ops.stencil import decode_stencil, lookahead_mask, masks_plain, stencil_plain
 from rtlamr_tpu_torch.parallel import WidebandDecoder, WidebandMeshDecoder
 from rtlamr_tpu_torch.parallel import wideband as wideband_mod
 from rtlamr_tpu_torch.parallel import wideband_mesh as wideband_mesh_mod
@@ -186,11 +206,14 @@ from rtlamr_tpu_torch.parallel.mesh import MeshDecoder, dryrun, stage_superbatch
 from rtlamr_tpu_torch.protocols import new_parser
 from rtlamr_tpu_torch.protocols.base import build_decoder_config
 from rtlamr_tpu_torch.ref import ReferenceDecoder, synth
+from rtlamr_tpu_torch.utils import observability
+from rtlamr_tpu_torch.utils.observability import TRACER
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_BIN = os.path.join(ROOT, "tests", "fixtures", "sample.bin")
 ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
-KERNELS = ("decode_stencil", "channelizer")  # csrc/<name>.cu
+#: the hand-written kernels: csrc/decode_stencil.cu holds the first two
+KERNELS = ("decode_stencil", "lookahead_mask", "channelizer")
 WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
 #: worker processes of the oracle run (the card machine has 8 cores)
 ORACLE_WORKERS = 8
@@ -383,24 +406,35 @@ def stencil_work(spec, bits: torch.Tensor, int_rate: float):
     sl, w = spec.symbol_length, spec.window
     r900 = spec.wants_r900
     n_bytes = 2 * geo.staged_samples + geo.lp + (geo.lq if r900 else 0) + w
-    n_words = -(-w // 32)
-    max_len = max(len(g.bits) for g in spec.groups)
-    # live[g][k]: words in which group g has a position alive before symbol k.
-    live = torch.zeros(len(spec.groups), max_len, n_words, dtype=torch.bool,
-                       device=bits.device)
-    for gi, g in enumerate(spec.groups):
-        alive = torch.zeros(32 * n_words, dtype=torch.bool, device=bits.device)
-        alive[:w] = True
-        for k, b in enumerate(g.bits):
-            live[gi, k] = alive.view(n_words, 32).any(1)
-            alive[:w] &= bits[k * sl : k * sl + w] == b
-    bank = int(live.sum()) + int(live.any(0).sum())  # xor-ands + funnel shifts
+    bank = bank_ops(spec, bits, w)
     n_read = geo.lp + sl + (4 * spec.chip_length if r900 else 0)
     ops = 2 * n_read + 3 * geo.lp + bank + (19 * geo.lq if r900 else 0)
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / int_rate * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return n_bytes, ops, t_bytes, t_ops, max(t_bytes, t_ops), bound_by
+
+
+def bank_ops(spec, bits: torch.Tensor, n: int) -> int:
+    """32-bit integer operations of the preamble bank over the first ``n``
+    positions of ``bits``, in 32-position words: for each word and symbol
+    k, one word of bits k SL on (a funnel shift in K1, a ballot in the
+    look-ahead's kernel) and one xor-and for each group still alive in the
+    word, while some group is; a group's word stops at the first symbol
+    after which none of its positions matches, as this data needs."""
+    sl = spec.symbol_length
+    n_words = -(-n // 32)
+    max_len = max(len(g.bits) for g in spec.groups)
+    # live[g][k]: words in which group g has a position alive before symbol k.
+    live = torch.zeros(len(spec.groups), max_len, n_words, dtype=torch.bool,
+                       device=bits.device)
+    for gi, g in enumerate(spec.groups):
+        alive = torch.zeros(32 * n_words, dtype=torch.bool, device=bits.device)
+        alive[:n] = True
+        for k, b in enumerate(g.bits):
+            live[gi, k] = alive.view(n_words, 32).any(1)
+            alive[:n] &= bits[k * sl : k * sl + n] == b
+    return int(live.sum()) + int(live.any(0).sum())
 
 
 #: spin kernels (``torch.cuda._sleep``) that open each torch.profiler
@@ -653,14 +687,14 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
         clock.wrap(dec, name)
     for name in ("decode_window_staged_packed", "fetch", "enqueue_fetch"):
         clock.wrap(pipeline_mod, name)
-    decode_stencil.launches = 0
+    decode_stencil.launches = lookahead_mask.launches = 0
     t0 = time.perf_counter()
     try:
         msgs = feed_all(dec)
     finally:
         clock.restore()
     elapsed = time.perf_counter() - t0
-    launches = decode_stencil.launches
+    launches, la_launches = decode_stencil.launches, lookahead_mask.launches
     s = clock.s
     n_win = dec.metrics.windows_decoded
     host_ms = {k: v * 1e3 / n_win for k, v in {
@@ -681,6 +715,9 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     check(len(msgs) == len(planted), f"decode: {len(msgs)} messages for "
           f"{len(planted)} planted packets")
     check(launches > 0, "decode: the decode stencil kernel was not launched")
+    # every window but the stream's first and the flush's short one looks ahead
+    check(la_launches == launches - 2,
+          f"decode: {la_launches} look-ahead mask launches for {launches} windows")
 
     # Where the device time of one window goes (a planted window, not first).
     spec = dec.spec
@@ -698,14 +735,14 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     samples = iq.size // 2
     emit("decode", card=card, windows=dec.metrics.windows_decoded,
          messages=len(msgs), planted=len(planted), launches=launches,
-         samples=samples, seconds=elapsed, samples_per_s=samples / elapsed,
+         lookahead_launches=la_launches, samples=samples, seconds=elapsed, samples_per_s=samples / elapsed,
          hit_overflows=dec.metrics.hit_overflows,
          host_ms_per_window=host_ms,
          window_program_ms=window_ms, window_program_no_gates_ms=no_gate_ms,
          window_program_host_enqueue_ms=enqueue_ms,
          window_program_kernels=kernels, window_program_kernel_ms=busy_ms,
          window_program_top_kernels=top)
-    return msgs, launches, host_ms
+    return msgs, (launches, la_launches), host_ms
 
 
 def phase_batch(iq: np.ndarray, want_msgs) -> int:
@@ -743,6 +780,128 @@ def phase_batch(iq: np.ndarray, want_msgs) -> int:
          staged_equal_to_feed=True, launches=launches,
          run_window_equal_to_host_staged=True, run_window_launches=rw_launches)
     return launches, rw_launches
+
+
+def lookahead_cases(capture: np.ndarray):
+    """(spec, label, staged u16 window) of the lookahead phase: the
+    benchmark cell's shape (``-msgtype=all``, chip length 72, 16-block
+    windows) on planted windows 1 and 5 of the decode phase's capture, on
+    random bytes and all-zero (every bit 1, so every preamble bit of 1
+    matches); the ``-latency`` preset's 4-block windows on a planted window;
+    all six types at chip length 8 on random bytes."""
+    cfg72 = build_decoder_config([new_parser(n, 72) for n in ALL])
+    spec16 = make_frontend_spec(cfg72, 16)
+    spec4 = make_frontend_spec(cfg72, 4)
+    six = ("scm", "scm+", "idm", "netidm", "r900", "r900bcd")
+    spec8 = make_frontend_spec(build_decoder_config([new_parser(n, 8) for n in six]), 24)
+    rng = np.random.default_rng(11)
+
+    def rand(spec):
+        n = staged_geometry(spec).staged_samples
+        return rng.integers(0, 256, 2 * n, dtype=np.uint8).view(np.uint16)
+
+    return [
+        (spec16, "all@72x16:packets1", staged_windows(spec16, capture, 2)[1]),
+        (spec16, "all@72x16:packets5", staged_windows(spec16, capture, 6)[5]),
+        (spec16, "all@72x16:random", rand(spec16)),
+        (spec16, "all@72x16:zeros", np.zeros(staged_geometry(spec16).staged_samples, np.uint16)),
+        (spec4, "all@72x4:packets", staged_windows(spec4, capture, 10)[9]),
+        (spec8, "six@8x24:random", rand(spec8)),
+    ]
+
+
+def lookahead_want(spec, bits: torch.Tensor) -> torch.Tensor:
+    """``masks_plain`` over the look-ahead's positions of ``bits``."""
+    n = lookahead_geometry(spec).extent
+    return masks_plain(dataclasses.replace(spec, window=n), bits[spec.window:])
+
+
+def phase_lookahead(card: str, iq: np.ndarray, planted: set):
+    dev = torch.device("cuda")
+    hits = {}
+    for spec, label, host in lookahead_cases(iq):
+        bits = decode_stencil(spec, torch.from_numpy(host).to(dev), False)[0]
+        got = lookahead_mask(spec, bits)
+        want = lookahead_want(spec, bits)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"lookahead {label}: shape/dtype {got.shape} {want.shape}")
+        check(torch.equal(got, want), f"lookahead {label}: "
+              f"{int((got != want).sum())} positions differ")
+        hits[label] = int((got != 0).sum())
+    check(hits["all@72x16:packets1"] + hits["all@72x16:packets5"] > 0,
+          "lookahead: no preamble hit in the planted windows' look-ahead")
+    emit("lookahead_parity", cases=list(hits), exact=True, hit_positions=hits)
+
+    # The -latency receiver at the cell's window on the decode phase's
+    # capture: the throughput preset's records, the mask kernel launched
+    # once a window looked ahead.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.bin")
+        iq.tofile(path)
+        base = ["-msgtype=all", "-format=json", f"-fromfile={path}", "-duration=0"]
+        rc, want, _ = run_cli(base)
+        check(rc == 0, f"lookahead: throughput CLI exit code {rc}")
+        calls = {"ahead": 0, "all": 0}
+        orig = pipeline_mod.decode_window_staged_packed
+
+        def counted(*args, **kwargs):
+            calls["all"] += 1
+            calls["ahead"] += bool(kwargs.get("lookahead"))
+            return orig(*args, **kwargs)
+
+        TRACER.reset()
+        observability.enable()
+        pipeline_mod.decode_window_staged_packed = counted
+        decode_stencil.launches = lookahead_mask.launches = 0
+        try:
+            rc, got, _ = run_cli(base + ["-latency", "-windowblocks=16"])
+            launches, k1 = lookahead_mask.launches, decode_stencil.launches
+            totals = TRACER.snapshot().totals
+        finally:
+            pipeline_mod.decode_window_staged_packed = orig
+            observability.disable()
+            TRACER.reset()
+    engaged = totals.get("pipeline.lookahead", (0,))[0]
+    check(rc == 0, f"lookahead: -latency CLI exit code {rc}")
+    check(got == want, f"lookahead: -latency gives {len(got)} records, the throughput "
+          f"preset {len(want)}, or they differ")
+    check(len(got) == len(planted),
+          f"lookahead: {len(got)} records for {len(planted)} planted packets")
+    check(calls["ahead"] > 0 and launches == calls["ahead"],
+          f"lookahead: {launches} mask kernel launches for {calls['ahead']} windows looked ahead")
+    check(k1 == calls["all"], f"lookahead: {k1} K1 launches for {calls['all']} windows")
+    check(engaged > 0, "lookahead: no window's look-ahead resolved a block")
+    emit("lookahead", card=card, records=len(got), windows=calls["all"],
+         windows_looked_ahead=calls["ahead"], mask_launches=launches, k1_launches=k1,
+         lookahead_spans=engaged)
+    return launches
+
+
+def phase_lookahead_time(card: str, iq: np.ndarray):
+    dev = torch.device("cuda")
+    spec, _, host = lookahead_cases(iq)[0]
+    bits = decode_stencil(spec, torch.from_numpy(host).to(dev), False)[0]
+    n = lookahead_geometry(spec).extent
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = event_ms(lambda: lookahead_mask(spec, bits), flush=flush)
+    k_ms = kernel_ms(lambda: lookahead_mask(spec, bits), "lookahead_mask_kernel", flush=flush)
+    plain_ms = event_ms(lambda: lookahead_want(spec, bits), flush=flush)
+    del flush
+    reach = staged_geometry(spec).pre_reach
+    n_bytes = (n + reach) + n  # the bits read once, the mask written once
+    ops = bank_ops(spec, bits[spec.window:], n)
+    rate = card_rate(INT32_PER_CLOCK_PER_SM)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    emit("lookahead_time", card=card, spec="all@72x16", positions=n, ms=ms, kernel_ms=k_ms,
+         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=n_bytes,
+         bytes_ms=bytes_ms, int_ops=ops, ops_ms=ops_ms, roofline_share=bound_ms / k_ms,
+         roofline_share_events=bound_ms / ms)
+    return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def results_equal(a, b) -> bool:
@@ -1967,8 +2126,9 @@ def main() -> int:
     # the process launched the window program's kernels more slowly, which
     # showed in the paths' host and span times.
     cli_launches = phase_cli()
-    msgs, launches, feed_host_ms = phase_decode(card, iq, planted)
+    msgs, (launches, la_feed_launches), feed_host_ms = phase_decode(card, iq, planted)
     batch_launches, run_window_launches = phase_batch(iq, msgs)
+    lookahead_launches = phase_lookahead(card, iq, planted)
     wide_k1, wide_k2, wide = phase_wideband(card)
     # The port's oracle over the throughput capture in worker processes
     # while the untimed wideband_cli and resume phases run, and waited for
@@ -1998,8 +2158,11 @@ def main() -> int:
     multihost_k1 = phase_multihost(card, iq, msgs)
     del msgs
     k1 = phase_k1(card, iq)
-    del iq
     k2 = phase_k2(card)
+    # After k2: run between k1 and k2, it was followed by a k2 profiler
+    # record that held 17 of 20 launches (H100, torch 2.11).
+    la = phase_lookahead_time(card, iq)
+    del iq
     print(json.dumps({"kernels": [{
         "name": "decode_stencil",
         "route": "cuda",
@@ -2024,6 +2187,21 @@ def main() -> int:
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
+        "library_ms": None,
+        "card": card,
+    }, {
+        "name": "lookahead_mask",
+        "route": "cuda",
+        "source": "rtlamr_tpu_torch/csrc/decode_stencil.cu",
+        "replaces": None,
+        "launches": la_feed_launches,
+        "launches_lookahead_cli": lookahead_launches,
+        "parity": "exact",
+        "ms": la["ms"],
+        "kernel_ms": la["kernel_ms"],
+        "plain_ms": la["plain_ms"],
+        "bound_ms": la["bound_ms"],
+        "bound_by": la["bound_by"],
         "library_ms": None,
         "card": card,
     }, {

@@ -123,6 +123,18 @@ __device__ __forceinline__ void store16(uint8_t* out, int i, int end, uint4 v) {
     if (i + b >= 0 && i + b < end) out[i + b] = (uint8_t)(w[b >> 2] >> (8 * (b & 3)));
 }
 
+// The preamble bank's table: flip[k][g] is 0 where group g's preamble
+// symbol k is 1 (or g >= NG), all ones where it is 0, so that a word of bits
+// XOR flip[k][g] has a 1 at each position whose bit k SL on matches.
+template <int NG>
+__device__ __forceinline__ void fill_flip(uint32_t (*flip)[MAX_GROUPS], const StencilArgs& a,
+                                          int tid, int threads) {
+  for (int x = tid; x < 64 * MAX_GROUPS; x += threads) {
+    const int k = x / MAX_GROUPS, g = x % MAX_GROUPS;
+    flip[k][g] = g < NG && !((a.pre_bits[g] >> k) & 1ull) ? 0xffffffffu : 0u;
+  }
+}
+
 // Bits and R900 symbols of a warp's 256 positions, from e_n = I[j - 1 + n CL]
 // (p0: lane's e_0 for the first 32, j = i + shift, P[j] = I[j - 1],
 // SL = 2 CL): f = 2 P[j + CL] - P[j] - P[j + SL] = 2 e1 - e0 - e2, packed 32
@@ -197,10 +209,7 @@ decode_stencil_kernel(const uint16_t* __restrict__ staged, uint8_t* __restrict__
   };
 
   if (tid == 0) pre[lb - 1] = 0;  // I[-1]
-  for (int x = tid; x < 64 * MAX_GROUPS; x += THREADS) {
-    const int k = x / MAX_GROUPS, g = x % MAX_GROUPS;
-    flip[k][g] = g < NG && !((a.pre_bits[g] >> k) & 1ull) ? 0xffffffffu : 0u;
-  }
+  fill_flip<NG>(flip, a, tid, THREADS);
 #pragma unroll
   for (int t = 0; t < STAGES - 1; ++t) {
     if (t < a.n_steps) issue(t);
@@ -356,6 +365,92 @@ decode_stencil_kernel(const uint16_t* __restrict__ staged, uint8_t* __restrict__
   }
 }
 
+// The preamble bank alone over positions [q0, q0 + n) of a bit stream K1
+// wrote, one byte a position: the mask of the window program's look-ahead
+// (ops/stencil.py lookahead_mask). A warp takes 32 consecutive positions;
+// for each preamble symbol k its lanes read the bits k SL on, which
+// __ballot_sync packs into a word, and the word meets each live group's
+// flip mask as in K1's bank (groups longest first, their count fixed at
+// compile time). Output byte i is position q0 + i, its bit order[g] group
+// g's hit.
+#define MASK_THREADS 256
+
+template <int NG>
+__global__ void __launch_bounds__(MASK_THREADS)
+lookahead_mask_kernel(const uint8_t* __restrict__ bits, uint8_t* __restrict__ mask, int q0,
+                      int n, const StencilArgs a) {
+  __shared__ __align__(16) uint32_t flip[64][MAX_GROUPS];
+  fill_flip<NG>(flip, a, threadIdx.x, MASK_THREADS);
+  __syncthreads();
+  const int i = blockIdx.x * MASK_THREADS + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const bool inside = i < n;
+  const uint8_t* p = bits + q0 + i;
+  uint32_t acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g] = 0xffffffffu;
+  int k = 0;
+#pragma unroll
+  for (int live = NG; live >= 1; --live) {
+    for (; k < a.pre_len[live - 1]; ++k) {
+      const uint32_t w = __ballot_sync(0xffffffffu, inside && p[k * a.sl]);
+#pragma unroll
+      for (int g = 0; g < live; ++g) acc[g] &= w ^ flip[k][g];
+    }
+  }
+  if (inside) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) m |= ((acc[g] >> lane) & 1u) << a.order[g];
+    mask[i] = (uint8_t)m;
+  }
+}
+
+// Groups longest first, at most 64 symbols, each mask bit once.
+static bool groups_ok(const StencilArgs& a) {
+  if (a.n_groups < 1 || a.n_groups > MAX_GROUPS || a.max_len != a.pre_len[0]) return false;
+  int seen = 0;
+  for (int g = 0; g < a.n_groups; ++g) {
+    if (a.pre_len[g] < 1 || a.pre_len[g] > (g ? a.pre_len[g - 1] : 64) || a.order[g] < 0 ||
+        a.order[g] >= a.n_groups || (seen >> a.order[g] & 1))
+      return false;
+    seen |= 1 << a.order[g];
+  }
+  return true;
+}
+
+template <int NG>
+static int launch_mask(const void* bits, void* mask, int q0, int n, const StencilArgs& a,
+                       void* stream) {
+  lookahead_mask_kernel<NG><<<(n + MASK_THREADS - 1) / MASK_THREADS, MASK_THREADS, 0,
+                              (cudaStream_t)stream>>>((const uint8_t*)bits, (uint8_t*)mask, q0,
+                                                      n, a);
+  return (int)cudaGetLastError();
+}
+
+// Launch the look-ahead's bank on `stream`: mask[i] for positions q0 + i,
+// i < n, of `bits` (a.lp bytes). Returns 0 or a CUDA error code:
+// cudaErrorInvalidValue when a read would pass a.lp or the groups are not
+// K1's, else that of the launch. `args` is K1's, read before the call
+// returns.
+extern "C" int rtlamr_lookahead_mask(const void* bits, void* mask, int q0, int n,
+                                     const StencilArgs* args, void* stream) {
+  const StencilArgs a = *args;
+  if (n < 1 || q0 < 0 || a.sl < 1 || !groups_ok(a) ||
+      (long long)q0 + n + (long long)(a.max_len - 1) * a.sl > a.lp)
+    return (int)cudaErrorInvalidValue;
+  switch (a.n_groups) {
+    case 1: return launch_mask<1>(bits, mask, q0, n, a, stream);
+    case 2: return launch_mask<2>(bits, mask, q0, n, a, stream);
+    case 3: return launch_mask<3>(bits, mask, q0, n, a, stream);
+    case 4: return launch_mask<4>(bits, mask, q0, n, a, stream);
+    case 5: return launch_mask<5>(bits, mask, q0, n, a, stream);
+    case 6: return launch_mask<6>(bits, mask, q0, n, a, stream);
+    case 7: return launch_mask<7>(bits, mask, q0, n, a, stream);
+    default: return launch_mask<8>(bits, mask, q0, n, a, stream);
+  }
+}
+
 static size_t smem_bytes(int lookback, int bit_words) {
   return (size_t)(SUB_TILE + lookback) * 4 + MAX_GROUPS * WORDS * 4 + STAGES * SUB_TILE * 2 +
          SUB_TILE + (size_t)bit_words * 4;
@@ -399,13 +494,7 @@ extern "C" int rtlamr_decode_stencil(const void* staged, void* bits, void* q6, v
             smem_bytes(a.lookback, a.bit_words) <= SMEM_CAP && ((uintptr_t)staged & 15) == 0 &&
             ((uintptr_t)bits & 15) == 0 && ((uintptr_t)q6 & 15) == 0 &&
             ((uintptr_t)mask & 15) == 0;
-  int seen = 0;
-  for (int g = 0; ok && g < a.n_groups; ++g) {
-    ok = a.pre_len[g] >= 1 && a.pre_len[g] <= (g ? a.pre_len[g - 1] : 64) &&
-         a.order[g] >= 0 && a.order[g] < a.n_groups && !(seen >> a.order[g] & 1);
-    if (ok) seen |= 1 << a.order[g];
-  }
-  if (!ok || a.max_len != a.pre_len[0]) return (int)cudaErrorInvalidValue;
+  if (!ok || !groups_ok(a)) return (int)cudaErrorInvalidValue;
 
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);

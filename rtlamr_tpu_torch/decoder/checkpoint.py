@@ -174,6 +174,9 @@ class Checkpoint:
     prev_digests: List[Tuple]  # Digest tuples
     #: the decoder's window in samples (None: a file without it)
     window: Optional[int] = None
+    #: the last block the look-ahead emitted (None: none, or a file without
+    #: it); written only when set
+    lookahead_mark: Optional[int] = None
 
     def save(self, path: str) -> None:
         meta = {
@@ -185,6 +188,8 @@ class Checkpoint:
             "prev_digests": _ser_digests(self.prev_digests),
             "window": self.window,
         }
+        if self.lookahead_mark is not None:
+            meta["lookahead_mark"] = self.lookahead_mark
         carry = np.ascontiguousarray(self.carry, "<u2").tobytes()
         _save_pair(path, ".carry.bin", carry, meta)
 
@@ -199,6 +204,7 @@ class Checkpoint:
             carry=np.frombuffer(data, "<u2").astype(np.uint16),
             prev_digests=_de_digests(meta["prev_digests"]),
             window=meta.get("window"),
+            lookahead_mark=meta.get("lookahead_mark"),
         )
 
 
@@ -410,6 +416,7 @@ def capture_checkpoint(dec, byte_offset: int):
             carry=state["carry"],  # a MeshDecoder's: the JAX mesh decoder's (halo,)
             prev_digests=[tuple(d) for d in state["dedup_prev"]],
             window=dec.spec.window,
+            lookahead_mark=state.get("lookahead_mark"),
         )
     raise TypeError(f"capture_checkpoint: no checkpoint kind for {type(dec).__name__}")
 
@@ -516,6 +523,7 @@ def restore_checkpoint(dec, ckpt) -> None:
             "dedup_prev": ckpt.prev_digests,
             # next is rebuilt at every block start (decoder/dedup.py)
             "dedup_next": (),
+            "lookahead_mark": ckpt.lookahead_mark,
         })
         return
     n, p = dec.n_channels, dec.chspec.history_frames

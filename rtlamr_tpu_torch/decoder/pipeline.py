@@ -33,9 +33,17 @@ from ..device import DeviceLike, resolve_device
 from ..ops.frontend import (
     decode_window_staged_packed,
     decode_windows_scan,
+    unpack_lookahead,
     unpack_results,
 )
-from ..ops.spec import FrontendSpec, make_frontend_spec, staged_geometry
+from ..ops.spec import (
+    FrontendSpec,
+    lookahead_geometry,
+    lookahead_spec,
+    make_frontend_spec,
+    resolved_blocks,
+    staged_geometry,
+)
 from ..protocols.base import (
     DecoderConfig,
     Digest,
@@ -62,6 +70,9 @@ class WindowMeta(NamedTuple):
     #: blocks of the window that hold capture (None: all of them)
     valid_blocks: Optional[int]
     window_index: int
+    #: the :func:`enqueue_fetch` handle of the window's look-ahead buffer
+    #: (ops/frontend.decode_window_staged_packed), None: none
+    ahead: Optional[tuple] = None
 
 
 def enqueue_fetch(buf: torch.Tensor):
@@ -140,6 +151,18 @@ class StagingRing:
 class WindowDecoder:
     """Streaming decoder over fixed-size sample windows.
 
+    A streamed window (:meth:`feed`, :meth:`process_host_staged`) but a
+    stream's first and a short one also searches the next window's first
+    blocks, whose bits it already holds (ops/spec.lookahead_geometry; none
+    where PacketLength is every group's own), once the window's own buffer
+    has left for the host. The blocks of that look-ahead in which every
+    group's packets fit, or the group has no raw preamble hit, are
+    resolved: each is parsed (in block order, through the same filter and
+    dedup) by the feed that brings its bytes, or when a later window is
+    dispatched, and later windows skip it. The stream is the same message
+    for message wherever it ends; a short packet found in those blocks
+    comes out a window sooner.
+
     Args:
       parsers: registered protocol parsers (registration order is the
         deterministic message order within a block).
@@ -182,6 +205,8 @@ class WindowDecoder:
         self._group_parsers = [
             self.cfg.preamble_groups[g.preamble] for g in self.spec.groups
         ]
+        #: the spec has a look-ahead (ops/spec.lookahead_geometry)
+        self.lookahead = lookahead_geometry(self.spec).extent > 0
         self.reset()
 
     # -- streaming state ----------------------------------------------------
@@ -194,6 +219,18 @@ class WindowDecoder:
         self._window_index = 0
         self._deduper = BlockDeduper()
         self._last_block = -1
+        #: the last block the look-ahead emitted (-1: none); later windows
+        #: skip every block up to it
+        self._lookahead_mark = -1
+        #: the last completed window's look-ahead, not fetched yet: (its
+        #: enqueue_fetch handle, its window)
+        self._ahead_fetch = None
+        #: the resolved look-ahead not emitted yet: (its unpacked result,
+        #: its window, its last resolved block, the blocks of its
+        #: candidates)
+        self._ahead = None
+        #: blocks of the windows dispatched (a short window's valid ones)
+        self._blocks_dispatched = 0
         self._plist: List[np.ndarray] = []
         self._psize = 0
         #: one-deep dispatch-ahead pipeline: (result handle, meta) of the
@@ -203,8 +240,9 @@ class WindowDecoder:
     def export_state(self) -> Dict[str, object]:
         """The stream state as plain numpy/Python values: the staged halo
         carry, the first-window flag, the window and block counters, the
-        digest sets of the cross-block dedup and the unconsumed bytes. The
-        dispatch-ahead pipeline must be drained first."""
+        digest sets of the cross-block dedup, the unconsumed bytes and the
+        last block the look-ahead emitted (None: none). The dispatch-ahead
+        pipeline must be drained first."""
         if self._inflight is not None:
             raise RuntimeError("export_state: drain() the in-flight window first")
         return {
@@ -215,11 +253,13 @@ class WindowDecoder:
             "dedup_prev": set(self._deduper.prev),
             "dedup_next": set(self._deduper.next),
             "pending": self._pending.copy(),
+            "lookahead_mark": None if self._lookahead_mark < 0 else int(self._lookahead_mark),
         }
 
     def load_state(self, state: Dict[str, object]) -> None:
         """Resume a stream from :meth:`export_state` values (or the same
-        values read from the JAX package's decoder)."""
+        values read from the JAX package's decoder, which has no
+        ``lookahead_mark``: none)."""
         self.reset()
         self._load_carry(np.asarray(state["carry"], np.uint16))
         self._first = bool(state["first"])
@@ -228,6 +268,9 @@ class WindowDecoder:
         self._deduper.prev = {Digest(*d) for d in state["dedup_prev"]}
         self._deduper.next = {Digest(*d) for d in state["dedup_next"]}
         self._pending = np.array(state.get("pending", ()), np.uint8)
+        mark = state.get("lookahead_mark")
+        self._lookahead_mark = -1 if mark is None else int(mark)
+        self._blocks_dispatched = self._window_index * self._window_blocks
 
     def _host_carry(self) -> np.ndarray:
         """The carry as :meth:`export_state` gives it."""
@@ -244,6 +287,10 @@ class WindowDecoder:
     @property
     def window_bytes(self) -> int:
         return 2 * self.spec.window
+
+    @property
+    def _window_blocks(self) -> int:
+        return self.spec.window // self.spec.block_size
 
     def discard_pending(self) -> int:
         """Drop the bytes fed since the last whole window; returns how many.
@@ -279,7 +326,7 @@ class WindowDecoder:
         if chunk.size:
             self._plist.append(chunk)
             self._psize += int(chunk.size)
-        out: List[Tuple[int, Message]] = []
+        out = self._release_fed()
         wb = self.window_bytes
         if self._psize >= wb:
             buf = self._pending  # one concatenate for all buffered chunks
@@ -287,7 +334,14 @@ class WindowDecoder:
             for i in range(n_win):
                 out.extend(self._process_window(buf[i * wb : (i + 1) * wb]))
             self._pending = buf[n_win * wb :]
+            out.extend(self._release_fed())
         return out
+
+    def _release_fed(self) -> List[Tuple[int, Message]]:
+        """The look-ahead's messages of every block fed so far."""
+        if self._ahead is None and self._ahead_fetch is None:
+            return []
+        return self._release(self._blocks_dispatched + self._psize // (2 * self.cfg.block_size))
 
     def flush(self) -> List[Tuple[int, Message]]:
         """Decode remaining full blocks (zero-padding the final window) and
@@ -346,6 +400,7 @@ class WindowDecoder:
             meta = WindowMeta(iq_full, self._first, None, self._window_index)
             self._first = False
             self._window_index += 1
+            self._blocks_dispatched += self._window_blocks
             out.extend(self._dispatch((enqueue_fetch(buf), meta)))
         if drain:
             out.extend(self.drain())
@@ -366,6 +421,7 @@ class WindowDecoder:
         ]
         self._first = False
         self._window_index += k
+        self._blocks_dispatched += k * self._window_blocks
         out = self._dispatch((enqueue_fetch(packed), metas))
         if drain:
             out.extend(self.drain())
@@ -449,12 +505,25 @@ class WindowDecoder:
             # The device copy serves an escalation; the carry comes from the
             # host.
             self._carry = host[w : w + hs].numpy().copy()
+        # A first window's look-ahead is not read (its stencil zeroes the
+        # stream's history, the next window's does not), nor a short one's
+        # (it lies past the capture).
+        looks = self.lookahead and not self._first and valid_blocks is None
         with span("frontend.enqueue", index):
-            buf = decode_window_staged_packed(spec, staged_t, self._first)
-        meta = WindowMeta(staged_t, self._first, valid_blocks, index)
+            if looks:
+                buf, ahead = decode_window_staged_packed(spec, staged_t, self._first,
+                                                         lookahead=True)
+            else:
+                buf, ahead = decode_window_staged_packed(spec, staged_t, self._first), None
+        handle = enqueue_fetch(buf)
+        # The look-ahead's search queues behind the window's copy to the
+        # host, so the window's messages do not wait for it.
+        meta = WindowMeta(staged_t, self._first, valid_blocks, index,
+                          None if ahead is None else enqueue_fetch(ahead()))
         self._first = False
         self._window_index += 1
-        return self._dispatch((enqueue_fetch(buf), meta))
+        self._blocks_dispatched += self._window_blocks if valid_blocks is None else valid_blocks
+        return self._dispatch((handle, meta))
 
     def complete(self, host_row: np.ndarray, meta: WindowMeta) -> List[Tuple[int, Message]]:
         """Parse one dispatched window's packed result buffer into its
@@ -465,10 +534,15 @@ class WindowDecoder:
         ``host_row`` is the window's (P,) u8 packed buffer on the host;
         windows must be completed in stream order. The streaming calls run
         it one window late; the wideband decoder runs it for each channel of
-        a super-step."""
-        staged, first, valid_blocks, window_index = meta
+        a super-step. The look-ahead's blocks of windows dispatched come
+        first; the window's own look-ahead (``meta.ahead``) is left for the
+        feeds that bring its blocks."""
+        staged, first, valid_blocks, window_index = meta[:4]
         with span("pipeline.parse", window_index):
             spec = self.spec
+            # (a window dispatched by process_host_staged alone has had no
+            # feed to release the look-ahead's blocks in it)
+            msgs = self._release(self._blocks_dispatched)
             res = unpack_results(spec, host_row)
             if self._overflowed(res, spec):
                 # Escalate: re-decode this window with a high-capacity
@@ -479,9 +553,58 @@ class WindowDecoder:
                 res = unpack_results(big, big_buf.cpu().numpy())
                 if self._overflowed(res, big):
                     res = self._window_results_numpy(staged.cpu().numpy(), first)
-            msgs = self._parse_window(res, valid_blocks, window_index)
+            msgs.extend(self._parse_window(res, valid_blocks, window_index))
+            if meta.ahead is not None:
+                self._ahead_fetch = (meta.ahead, window_index)
+                msgs.extend(self._release(self._blocks_dispatched))
             self.metrics.windows_decoded += 1
             self.metrics.samples_in += spec.window
+        return msgs
+
+    def _keep_lookahead(self, handle, window_index: int) -> None:
+        """Fetch a window's look-ahead (its :func:`enqueue_fetch` handle)
+        and keep it for the feeds that bring its resolved blocks, when it
+        resolves blocks past the kept one's. One whose search overflowed a
+        capacity resolves none: those blocks wait for their own window.
+        The span ``pipeline.lookahead`` (in no window: the window's own
+        has closed) covers the fetch, unpack and resolution of a
+        look-ahead that resolves blocks."""
+        since = stamp()
+        spec = self.spec
+        ahead, guards = unpack_lookahead(spec, fetch(handle))
+        n = 0 if self._overflowed(ahead, lookahead_spec(spec)) else resolved_blocks(spec, guards)
+        wb = self._window_blocks
+        last = (window_index + 1) * wb + n - 1
+        if n == 0 or last <= max(self._lookahead_mark, self._ahead[2] if self._ahead else -1):
+            return
+        with span("pipeline.lookahead", -1, since):
+            rows = np.concatenate([np.asarray(i, np.int64) for i in ahead["idx"]])
+            blocks = (window_index + 1) * wb + rows // spec.block_size
+            self._ahead = (ahead, window_index, last, blocks)
+
+    def _release(self, fed_blocks: int) -> List[Tuple[int, Message]]:
+        """The messages of the kept look-ahead's resolved blocks below
+        ``fed_blocks`` not emitted yet, parsed as their window would parse
+        them; moves the mark to the last of them. A look-ahead not fetched
+        yet is fetched once one of its blocks is fed."""
+        wb = self._window_blocks
+        if self._ahead_fetch is not None and fed_blocks > (self._ahead_fetch[1] + 1) * wb:
+            (handle, window_index), self._ahead_fetch = self._ahead_fetch, None
+            self._keep_lookahead(handle, window_index)
+        if self._ahead is None:
+            return []
+        ahead, window_index, last, blocks = self._ahead
+        upto = min(last, fed_blocks - 1)
+        if upto <= self._lookahead_mark or upto < (window_index + 1) * wb:
+            return []
+        msgs = []
+        if ((blocks > self._lookahead_mark) & (blocks <= upto)).any():
+            # The look-ahead's positions are the next window's.
+            msgs = self._parse_window(ahead, upto - (window_index + 1) * wb + 1,
+                                      window_index + 1)
+        self._lookahead_mark = upto
+        if upto == last:
+            self._ahead = None
         return msgs
 
     def _overflowed(self, res: Dict[str, object], spec=None) -> bool:
@@ -569,6 +692,9 @@ class WindowDecoder:
             )
             b_arr = idx // bs
             keep = b_arr < valid_blocks
+            if self._lookahead_mark >= window_block0:
+                # Blocks the look-ahead has emitted already.
+                keep &= b_arr > self._lookahead_mark - window_block0
             if not keep.any():
                 continue
             idx, b_arr, data = idx[keep], b_arr[keep], data[keep]

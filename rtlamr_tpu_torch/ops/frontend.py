@@ -18,6 +18,13 @@ module loads), and replayed for every later window: K1's outputs are copied
 into its static inputs and its packed buffer is copied out. A CPU tensor
 runs the search eagerly.
 
+The look-ahead (``decode_window_staged_packed(..., lookahead=True)``)
+searches the next window's first blocks with the bits and R900 digits K1
+has already computed for this window, in a graph of its own that the
+caller enqueues once the window's buffer is on its way to the host, so the
+window's messages never wait for it: :func:`lookahead_size` bytes, read by
+:func:`unpack_lookahead`.
+
 The raw-u8 window API takes one window of u8 interleaved IQ, its halo
 first (``2 * (halo + window)`` bytes), as the JAX package's does:
 :func:`stage_iq` stages it on its device, :func:`decode_core`,
@@ -30,6 +37,7 @@ NumPy results.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -39,9 +47,9 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..protocols.r900 import PAYLOAD_SYMBOLS
 from ..utils.observability import span
-from .search import search_slice
-from .spec import FrontendSpec, stage_host, staged_geometry
-from .stencil import decode_stencil
+from .search import lookahead_guards, search_slice
+from .spec import FrontendSpec, lookahead_spec, stage_host, staged_geometry
+from .stencil import decode_stencil, lookahead_mask
 
 
 def decode_core_staged(spec: FrontendSpec, staged: torch.Tensor, first: bool):
@@ -157,45 +165,111 @@ def pack_results(res: Dict[str, object]) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def lookahead_size(spec: FrontendSpec) -> int:
+    """Bytes of the look-ahead's buffer: its search's packed buffer at
+    :func:`~.spec.lookahead_spec`'s capacities, then the (G,) int32
+    guards."""
+    return packed_size(lookahead_spec(spec)) + 4 * len(spec.groups)
+
+
+def unpack_lookahead(spec: FrontendSpec, buf: np.ndarray) -> Tuple[Dict[str, object], np.ndarray]:
+    """The look-ahead's :func:`unpack_results` dict, its ``idx`` positions
+    from the window's end (the next window's), and its guards."""
+    buf = np.asarray(buf, np.uint8)
+    la = lookahead_spec(spec)
+    p = packed_size(la)
+    return unpack_results(la, buf[:p]), buf[p : lookahead_size(spec)].view(np.int32)
+
+
+def _search_packed(spec: FrontendSpec, bits, q6, mask2d) -> torch.Tensor:
+    return pack_results(search_slice(spec, bits, q6, mask2d))
+
+
+def _lookahead_packed(spec: FrontendSpec, bits, q6, mask2d=None) -> torch.Tensor:
+    """The look-ahead's buffer from a window's bits and R900 digits: its
+    mask (:func:`~.stencil.lookahead_mask`), the search over the streams
+    from the window's end on, and the guards."""
+    w = spec.window
+    ahead2d = lookahead_mask(spec, bits)
+    res = search_slice(lookahead_spec(spec), bits[w:], None if q6 is None else q6[w:], ahead2d)
+    return torch.cat([pack_results(res), _as_u8(lookahead_guards(spec, ahead2d))])
+
+
 class SearchGraph:
-    """The search and the packing of one spec, captured as a CUDA graph over
-    static copies of K1's three outputs; :meth:`replay` runs it on new
+    """A search and its packing (``search``: the window's, or the
+    look-ahead's, which computes its own mask) captured as a CUDA graph
+    over static copies of K1's outputs; :meth:`replay` runs it on new
     ones."""
 
     def __init__(self, spec: FrontendSpec, bits: torch.Tensor, q6: Optional[torch.Tensor],
-                 mask2d: torch.Tensor):
+                 mask2d: Optional[torch.Tensor], search=_search_packed):
         dev = bits.device
-        self.bits, self.mask2d = bits.clone(), mask2d.clone()
+        self.bits = bits.clone()
         self.q6 = None if q6 is None else q6.clone()
+        self.mask2d = None if mask2d is None else mask2d.clone()
         self.graph = torch.cuda.CUDAGraph()
+        before = lookahead_mask.launches
         # A capture stream on the inputs' card (the graph's default one
         # lies on whichever card made the first graph); "thread_local": a
         # CUDA call of another thread does not break the capture.
         with torch.cuda.device(dev), torch.cuda.graph(
                 self.graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
-            self.packed = pack_results(search_slice(spec, self.bits, self.q6, self.mask2d))
+            self.packed = search(spec, self.bits, self.q6, self.mask2d)
+        #: look-ahead mask kernels a replay launches (the capture launched
+        #: none)
+        self.mask_launches, lookahead_mask.launches = lookahead_mask.launches - before, before
 
     def replay(self, bits: torch.Tensor, q6: Optional[torch.Tensor],
-               mask2d: torch.Tensor) -> torch.Tensor:
+               mask2d: Optional[torch.Tensor]) -> torch.Tensor:
         """The packed buffer of the search over these K1 outputs: a fresh
         copy, so a result the caller holds survives the next replay. Every
         step is enqueued on the current stream of the inputs' card."""
         self.bits.copy_(bits)
         if q6 is not None:
             self.q6.copy_(q6)
-        self.mask2d.copy_(mask2d)
+        if mask2d is not None:
+            self.mask2d.copy_(mask2d)
         self.graph.replay()
+        lookahead_mask.launches += self.mask_launches
         return self.packed.clone()
 
 
-#: (spec, device, current stream) -> None once it has run eagerly, then its
+#: (spec, device, current stream), with "lookahead" last for the
+#: look-ahead's -> None once it has run eagerly, then its
 #: :class:`SearchGraph` (graphs and their memory pools live as long as the
 #: process)
 SEARCH_GRAPHS: Dict[tuple, Optional[SearchGraph]] = {}
 _graphs_lock = threading.Lock()
 
 
-def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first: bool):
+def _searched(spec: FrontendSpec, bits, q6, mask2d, name: str = "search",
+              search=_search_packed) -> torch.Tensor:
+    """``search``'s buffer over K1's outputs: eager on the CPU and the first
+    time its key runs on the card, then replayed from the key's
+    :class:`SearchGraph` (spans ``frontend.<name>_capture`` and
+    ``frontend.<name>_replay``)."""
+    if bits.device.type != "cuda":
+        return search(spec, bits, q6, mask2d)
+    dev = bits.device
+    key = (spec, dev, torch.cuda.current_stream(dev).cuda_stream)
+    if name != "search":
+        key += (name,)
+    # Held across the replay too: two threads on one stream would otherwise
+    # interleave their copies into the static inputs.
+    with _graphs_lock:
+        if key not in SEARCH_GRAPHS:
+            SEARCH_GRAPHS[key] = None
+            return search(spec, bits, q6, mask2d)
+        graph = SEARCH_GRAPHS[key]
+        if graph is None:
+            with span(f"frontend.{name}_capture"):
+                graph = SEARCH_GRAPHS[key] = SearchGraph(spec, bits, q6, mask2d, search)
+        with span(f"frontend.{name}_replay"):
+            return graph.replay(bits, q6, mask2d)
+
+
+def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first: bool,
+                                lookahead: bool = False):
     """Staged-input window decode with all outputs in one u8 buffer (the
     hot path: the host stages raw IQ bytes into the StagedGeometry layout,
     the device starts at the stencil).
@@ -203,24 +277,20 @@ def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first:
     K1 is launched (and counted) once a call; on the card the search is
     then replayed from the key's :class:`SearchGraph` (spans
     ``frontend.search_capture``, ``frontend.search_replay``), the first
-    call of a key running it eagerly. The bytes are the eager path's."""
+    call of a key running it eagerly. The bytes are the eager path's.
+
+    With ``lookahead`` (a spec whose :func:`~.spec.lookahead_geometry` has
+    an extent) it returns the pair (buffer, ahead): ``ahead()`` enqueues
+    the look-ahead's search over this window's K1 outputs (its own graph,
+    key ending in "lookahead", spans ``frontend.lookahead_capture`` and
+    ``frontend.lookahead_replay``) and returns its buffer. Call it once the
+    window's buffer is on its way to the host."""
     bits, q6, mask2d = decode_stencil(spec, staged, first)
-    if staged.device.type != "cuda":
-        return pack_results(search_slice(spec, bits, q6, mask2d))
-    dev = staged.device
-    key = (spec, dev, torch.cuda.current_stream(dev).cuda_stream)
-    # Held across the replay too: two threads on one stream would otherwise
-    # interleave their copies into the static inputs.
-    with _graphs_lock:
-        if key not in SEARCH_GRAPHS:
-            SEARCH_GRAPHS[key] = None
-            return pack_results(search_slice(spec, bits, q6, mask2d))
-        graph = SEARCH_GRAPHS[key]
-        if graph is None:
-            with span("frontend.search_capture"):
-                graph = SEARCH_GRAPHS[key] = SearchGraph(spec, bits, q6, mask2d)
-        with span("frontend.search_replay"):
-            return graph.replay(bits, q6, mask2d)
+    buf = _searched(spec, bits, q6, mask2d)
+    if not lookahead:
+        return buf
+    return buf, functools.partial(_searched, spec, bits, q6, None, "lookahead",
+                                  _lookahead_packed)
 
 
 def decode_window_packed(spec: FrontendSpec, iq, first: bool, device: DeviceLike = None):

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..protocols.r900 import PAYLOAD_SYMBOLS
-from .spec import FrontendSpec, GroupSpec, staged_geometry
+from .spec import FrontendSpec, GroupSpec, lookahead_geometry, staged_geometry
 
 
 def _strided_matrix(stream: torch.Tensor, stride: int, max_length: int) -> torch.Tensor:
@@ -267,24 +267,29 @@ def search_slice(spec: FrontendSpec, bits: torch.Tensor, q6, mask2d: torch.Tenso
 
     Returns the JAX package's result dict: ``counts`` (G, 2) [raw hits,
     surviving candidates]; per group ``idx`` (k,) ascending positions with
-    ``window`` as fill, ``keep`` (k,) u8 survivor mask, ``pvalid`` (k,) u8
+    ``n`` as fill, ``keep`` (k,) u8 survivor mask, ``pvalid`` (k,) u8
     per-parser validity bits, ``bytes`` (k, nbytes) MSB-first packed packet
     symbols, and ``symbols[g]`` (k, 42) R900 payload digits, at the slice
     capacity k = min(slice_hits, gather_hits).
+
+    ``mask2d`` is the (n / 128, 128) preamble mask of the streams' first n
+    positions: the window's, or the look-ahead's over streams that begin
+    at the window's end (:func:`lookahead_guards`). A packet read past the
+    streams' end reads zeros.
     """
     dev = bits.device
     cl = spec.chip_length
     sl = spec.symbol_length
     bs = spec.block_size
-    w = spec.window
+    rm = mask2d.shape[0]
+    w = rm * 128
     k_gather = spec.gather_hits
     n_rows_cap = spec.gather_rows
-    rm = w // 128
     geo = staged_geometry(spec)
     # Every take below stays in range; these are the deepest reads.
-    assert w <= geo.lp and bits.shape[0] == geo.lp
+    assert w <= bits.shape[0] <= geo.lp
     if spec.wants_r900:
-        assert w - 1 + spec.preamble_length - sl < geo.lq and q6.shape[0] == geo.lq
+        assert w - 1 + spec.preamble_length - sl < q6.shape[0] == bits.shape[0] - sl
 
     # Level 1: rows of the (w/128, 128) mask containing any hit.
     row_any = (mask2d != 0).any(dim=1)
@@ -407,3 +412,17 @@ def search_slice(spec: FrontendSpec, bits: torch.Tensor, q6, mask2d: torch.Tenso
         "bytes": byte_mats,
         "symbols": symbol_mats,
     }
+
+
+def lookahead_guards(spec: FrontendSpec, ahead2d: torch.Tensor) -> torch.Tensor:
+    """(G,) int32: each group's first raw preamble hit at or past its fit
+    in the look-ahead's (extent / 128, 128) mask, before any gate, relative
+    to the window's end (the extent when there is none); what
+    :func:`~.spec.resolved_blocks` reads."""
+    la = lookahead_geometry(spec)
+    flat = ahead2d.reshape(-1)
+    pos = torch.arange(la.extent, device=flat.device)
+    return torch.stack([
+        torch.where((((flat >> g) & 1) != 0) & (pos >= fit), pos, la.extent).amin()
+        for g, fit in enumerate(la.fits)
+    ]).to(torch.int32)

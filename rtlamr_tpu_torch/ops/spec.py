@@ -16,8 +16,8 @@ from ``s*W - PacketLength - SymbolLength`` on, so it carries a left halo of
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -163,6 +163,73 @@ def staged_geometry(spec: FrontendSpec) -> StagedGeometry:
         staged_rows=staged_rows,
         staged_samples=staged_rows * LANES,
     )
+
+
+class LookAhead(NamedTuple):
+    """The window program's look-ahead: the positions ``[window, window +
+    extent)`` of the staged buffer, the next window's first ``extent /
+    block_size`` blocks, searched with the bits and R900 digits already
+    computed for this window.
+
+    ``fits[g]`` counts the positions from ``window`` on whose whole packet
+    of group g lies inside the streams (bits below ``lp``, R900 digits
+    below ``lq``): there the search gives exactly what the next window's
+    gives. A block past a group's fit is resolved only when that group has
+    no raw preamble hit there (:func:`resolved_blocks`).
+    """
+
+    extent: int  # positions; a whole number of blocks, 0: no look-ahead
+    fits: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def lookahead_geometry(spec: FrontendSpec) -> LookAhead:
+    from ..protocols.r900 import PAYLOAD_SYMBOLS
+
+    geo = staged_geometry(spec)
+    w, sl, bs = spec.window, spec.symbol_length, spec.block_size
+    base = spec.preamble_length - sl  # first R900 payload digit past a hit
+    fits = []
+    for g in spec.groups:
+        fit = geo.lp - w - (g.packet_symbols - 1) * sl
+        if g.wants_r900:
+            fit = min(fit, geo.lq - w - base - (PAYLOAD_SYMBOLS - 1) * 4 * spec.chip_length)
+        fits.append(max(fit, 0))
+    # Every position's preamble bits lie below lp, and an R900 slice index
+    # (its fill, the extent, included) below lq.
+    room = geo.lp - w - geo.pre_reach
+    if spec.wants_r900:
+        room = min(room, geo.lq - w - base)
+    extent = max(min(-(-max(fits) // bs), room // bs) * bs, 0) if bs % LANES == 0 else 0
+    return LookAhead(extent, tuple(fits))
+
+
+@functools.lru_cache(maxsize=None)
+def lookahead_spec(spec: FrontendSpec) -> FrontendSpec:
+    """The spec the look-ahead is searched with: the window's, its
+    capacities scaled by extent / window (rounded up; rows at most the
+    look-ahead's). A look-ahead that overflows one defers its blocks to
+    their own window."""
+    n = lookahead_geometry(spec).extent
+
+    def scale(x: int) -> int:
+        return -(-x * n // spec.window)
+
+    return replace(spec, max_hits=scale(spec.max_hits), gather_hits=scale(spec.gather_hits),
+                   slice_hits=scale(spec.slice_hits),
+                   gather_rows=min(scale(spec.gather_rows), n // LANES))
+
+
+def resolved_blocks(spec: FrontendSpec, guards: Sequence[int]) -> int:
+    """Blocks of the look-ahead, from its first on, whose messages are all
+    known: in each, every group's packets fit or the group has no raw hit.
+    ``guards[g]`` is group g's first raw hit at or past its fit, relative
+    to ``window`` (the extent when there is none)."""
+    la = lookahead_geometry(spec)
+    n = la.extent // spec.block_size
+    for fit, hit in zip(la.fits, guards):
+        n = min(n, max(fit, int(hit)) // spec.block_size)
+    return n
 
 
 def stage_host(spec: FrontendSpec, iq: np.ndarray) -> np.ndarray:

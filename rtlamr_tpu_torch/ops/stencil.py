@@ -10,6 +10,10 @@ keep the JAX package's layout (``ops/frontend.frontend_stage_staged``):
   when no group wants R900 symbols;
 - mask2d: (window/128, 128) u8, bit g set where preamble group g matches.
 
+:func:`lookahead_mask` is the preamble bank alone over the positions past
+the window whose bits K1 wrote (the window program's look-ahead): a second
+kernel of the same library, or :func:`masks_plain` on the CPU.
+
 Exact integer arithmetic: the squared magnitude ``(255-2I)^2 + (255-2Q)^2``
 is an integer (reference protocol/decode.go:209-225), and every matched
 filter output is a difference of prefix sums. The plain version takes the
@@ -25,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .spec import LANES, FrontendSpec, staged_geometry
+from .spec import LANES, FrontendSpec, lookahead_geometry, staged_geometry
 
 StencilOut = Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]
 
@@ -74,12 +78,13 @@ def stencil_plain(spec: FrontendSpec, staged: torch.Tensor, first: bool) -> Sten
     return bits, q6, masks_plain(spec, bits)
 
 
-def masks_plain(spec: FrontendSpec, bits: torch.Tensor) -> torch.Tensor:
+def masks_plain(spec: FrontendSpec, bits: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     """Preamble correlation bank (decode.go:255-348): mask bit g at q is set
     iff every preamble bit of group g matches ``bits`` at stride
-    SymbolLength from q."""
+    SymbolLength from q, for the first ``n`` positions (the window's when
+    None), as (n / 128, 128)."""
     sl = spec.symbol_length
-    w = spec.window
+    w = spec.window if n is None else n
     mask = torch.zeros(w, dtype=torch.uint8, device=bits.device)
     for g, group in enumerate(spec.groups):
         assert (len(group.bits) - 1) * sl + w <= bits.shape[0]
@@ -256,3 +261,50 @@ def decode_stencil(spec: FrontendSpec, staged: torch.Tensor, first: bool) -> Ste
 
 #: kernel launches since the last reset (plain-version calls do not count)
 decode_stencil.launches = 0
+
+
+def _mask_fn():
+    from .build import load
+
+    fn = load("decode_stencil").rtlamr_lookahead_mask
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, ci, ci, vp, vp]
+        fn.restype = ci
+    return fn
+
+
+def lookahead_mask(spec: FrontendSpec, bits: torch.Tensor) -> torch.Tensor:
+    """The preamble mask of the look-ahead's positions ``[window, window +
+    extent)`` (:func:`~.spec.lookahead_geometry`) from a window's bits (K1's
+    output), as (extent / 128, 128) u8 with K1's mask bits.
+
+    A CPU tensor goes to :func:`masks_plain` over the bits from ``window``
+    on. A CUDA tensor launches the bank kernel of K1's library on the
+    current stream, counted in ``lookahead_mask.launches`` (not in
+    ``decode_stencil.launches``); a launch failure raises."""
+    n = lookahead_geometry(spec).extent
+    if n <= 0:
+        raise ValueError("lookahead_mask: the spec has no look-ahead")
+    if bits.device.type == "cpu":
+        return masks_plain(spec, bits[spec.window:], n)
+    geo = staged_geometry(spec)
+    if bits.dtype != torch.uint8 or bits.shape != (geo.lp,) or not bits.is_contiguous():
+        raise ValueError(f"lookahead_mask: want {geo.lp} contiguous u8 bits, "
+                         f"got {bits.dtype} {tuple(bits.shape)}")
+    dev = bits.device
+    args = _args(spec, _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()))
+    mask = torch.empty(n, dtype=torch.uint8, device=dev)
+    fn = _mask_fn()
+    with torch.cuda.device(dev):
+        rc = fn(bits.data_ptr(), mask.data_ptr(), spec.window, n, ctypes.byref(args),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lookahead_mask: CUDA error {rc} at launch")
+    lookahead_mask.launches += 1
+    return mask.reshape(n // LANES, LANES)
+
+
+#: kernel launches since the last reset, a CUDA graph's replays included
+#: (ops/frontend.SearchGraph; plain-version calls do not count)
+lookahead_mask.launches = 0

@@ -38,6 +38,14 @@ messages; its layers' spans are its children and share its window index:
 - ``pipeline.parse`` unpack, escalation, parse, filter and dedup
 - ``cli.emit``       encode, ring walk, dump and write of its messages
 
+A window's look-ahead (``WindowDecoder``'s search of the next window's
+first blocks) runs outside the windows' roots: ``frontend.lookahead_replay``
+(or ``frontend.lookahead_capture``) enqueues its search once the window's
+buffer has left, and ``pipeline.lookahead``, in a later feed, fetches,
+unpacks and resolves it, entered once a window whose look-ahead resolves
+blocks; the parse of those blocks, in the feeds that bring them, has no
+span.
+
 Set-up has ``setup.device_init`` (the CUDA context of each card) and
 ``setup.kernel_load`` (each CUDA library: dlopen, or ``nvcc`` first).
 """
