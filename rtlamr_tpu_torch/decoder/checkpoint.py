@@ -1,11 +1,12 @@
 """Stream-position checkpoint / resume for long offline captures.
 
-Port of the JAX package's ``decoder/checkpoint.py`` for the single-card
-decoders. The reference keeps no decoder state worth checkpointing
-(SURVEY.md §5.4); its decode state is at most BufferLength samples of
-history. So a resume point is the byte offset of the next window, the
-window and block counters, the carried samples and the dedup digest sets;
-restoring it continues the decode bit-identically.
+Port of the JAX package's ``decoder/checkpoint.py``. The reference keeps no
+decoder state worth checkpointing (SURVEY.md §5.4); its decode state is at
+most BufferLength samples of history. So a resume point is the byte offset
+of the next window, the window and block counters, the carried samples and
+the dedup digest sets; restoring it continues the decode bit-identically.
+This module holds the files and the refusals; each decoder builds its own
+kind (its ``checkpoint`` method) and restores it (``restore``). The kinds:
 
 - :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`: kind ``"window"``, the
   ``(halo_staged,)`` u16 staged tail in ``path.carry.bin``.
@@ -64,12 +65,6 @@ from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
-
-from ..parallel.distributed import MultiHostDecoder
-from ..parallel.mesh import MeshDecoder
-from ..parallel.wideband import WidebandDecoder
-from ..parallel.wideband_mesh import WidebandMeshDecoder
-from .pipeline import WindowDecoder
 
 
 def _ser_digests(digests) -> List[List]:
@@ -370,198 +365,52 @@ def load_checkpoint(path: str):
                      + (multihost if kind == "multihost" else "unknown"))
 
 
-def _require_boundary(dec) -> None:
-    if dec._pending.size:
+def require_boundary(pending_bytes: int, in_flight: bool) -> None:
+    """Refuse a checkpoint off a window boundary: with ``pending_bytes``
+    fed since the last whole window, or a window ``in_flight``."""
+    if pending_bytes:
         raise ValueError(
-            "checkpoint only at window boundaries: "
-            f"{dec._pending.size} pending bytes"
+            f"checkpoint only at window boundaries: {pending_bytes} pending bytes"
         )
-    if dec._inflight is not None:
+    if in_flight:
         raise ValueError(
             "checkpoint with an undrained window in flight; call drain() "
             "and emit its messages first"
         )
 
 
-def capture_checkpoint(dec, byte_offset: int):
-    """Snapshot a decoder at a window boundary (no pending bytes, nothing
-    in flight); ``byte_offset`` is the capture bytes it has consumed (for a
-    multi-host decoder, the global stream's)."""
-    if isinstance(dec, MultiHostDecoder):
-        return _capture_multihost(dec, byte_offset)
-    _require_boundary(dec)
-    state = dec.export_state()
-    if isinstance(dec, WidebandDecoder):
-        chans = state["channels"]
-        tail = state["chan_tail"]
-        if isinstance(dec, WidebandMeshDecoder):
-            tail = tail[:, dec.spec.pad_shift :]  # the JAX wideband mesh's (N, halo)
-        return WidebandCheckpoint(
-            byte_offset=byte_offset,
-            window_index=state["window_index"],
-            first=state["first"],
-            wb_hist=state["wb_hist"],
-            chan_tail=np.ascontiguousarray(tail),
-            chan_last_block=[c["last_block"] for c in chans],
-            chan_prev_digests=[[tuple(d) for d in c["dedup_prev"]] for c in chans],
-            xchan_seen=state["xchan_seen"],
-            window=dec.spec.window,
-        )
-    if isinstance(dec, WindowDecoder):
-        return Checkpoint(
-            byte_offset=byte_offset,
-            window_index=state["window_index"],
-            last_block=state["last_block"],
-            first=state["first"],
-            carry=state["carry"],  # a MeshDecoder's: the JAX mesh decoder's (halo,)
-            prev_digests=[tuple(d) for d in state["dedup_prev"]],
-            window=dec.spec.window,
-            lookahead_mark=state.get("lookahead_mark"),
-        )
-    raise TypeError(f"capture_checkpoint: no checkpoint kind for {type(dec).__name__}")
+def require_kind(ckpt, kind: type, dec) -> None:
+    """Refuse a checkpoint that is no ``kind``, the kind ``dec`` writes."""
+    if not isinstance(ckpt, kind):
+        raise ValueError(f"checkpoint kind mismatch: {type(ckpt).__name__} cannot "
+                         f"restore a {type(dec).__name__}")
 
 
-def _capture_multihost(dec: MultiHostDecoder, byte_offset: int) -> MultiHostCheckpoint:
-    state = dec.export_state()
-    carry = None
-    if not state["first"]:
-        carry = np.zeros((dec.n_local, dec.spec.halo), np.uint16)
-        if dec.process_id == 0:
-            carry[0] = state["carry"][dec.spec.pad_shift :]  # the stream tail
-    tail = state["prev_batch_tail"]
-    return MultiHostCheckpoint(
-        byte_offset=byte_offset,
-        window_index=state["window_index"],
-        first=state["first"],
-        last_block=state["last_block"],
-        carry_local=carry,
-        prev_digests=[tuple(d) for d in state["dedup_prev"]],
-        prev_batch_tail=None if tail is None else (tail[0], sorted(tail[1])),
-        num_processes=dec.num_processes,
-        process_id=dec.process_id,
-        n_global=dec.n_global,
-        scan_windows=dec.scan_windows,
-        window=dec.spec.window,
-    )
+def check_window(saved: Optional[int], window: int) -> None:
+    """Refuse a checkpoint saved at another window (``saved`` None: a file
+    without it)."""
+    if saved is not None and saved != window:
+        raise ValueError(f"checkpoint geometry mismatch: saved at a window of {saved} "
+                         f"samples, decoder has {window} (different -windowblocks?)")
 
 
-def _restore_multihost(dec: MultiHostDecoder, ckpt: MultiHostCheckpoint) -> None:
-    got = (ckpt.num_processes, ckpt.n_global, ckpt.process_id, ckpt.scan_windows, ckpt.window)
-    want = (dec.num_processes, dec.n_global, dec.process_id, dec.scan_windows, dec.spec.window)
-    if got != want:
-        raise ValueError(
-            f"checkpoint topology mismatch: saved for {got[0]} procs x {got[1]} devices "
-            f"(proc {got[2]}, K={got[3]}, window={got[4]}), decoder is {want[0]} x {want[1]} "
-            f"(proc {want[2]}, K={want[3]}, window={want[4]})")
-    halo, hs = dec.spec.halo, dec.spec.halo_staged
-    # Row 0 is process 0's stream tail (other processes receive theirs);
-    # the pad_shift samples before the halo are read by no stencil.
-    carry = np.zeros(hs, np.uint16)
-    if ckpt.carry_local is not None:
-        rows = np.asarray(ckpt.carry_local, np.uint16)
-        if rows.size != dec.n_local * halo:
-            raise _geometry("carry", rows.shape, (dec.n_local, halo), "different message types?")
-        if dec.process_id == 0:
-            carry[hs - halo :] = rows.reshape(-1, halo)[0]
-    dec.load_state({
-        "window_index": ckpt.window_index,
-        "first": ckpt.first,
-        "carry": carry,
-        "last_block": ckpt.last_block,
-        "dedup_prev": ckpt.prev_digests,
-        "prev_batch_tail": ckpt.prev_batch_tail,
-    })
-
-
-def _geometry(what: str, got, want, hint: str) -> ValueError:
+def geometry_mismatch(what: str, got, want, hint: str) -> ValueError:
     """The refusal of a carry of shape ``got`` where ``want`` is needed."""
     return ValueError(
         f"checkpoint geometry mismatch: {what} has {got}, decoder wants {want} ({hint})"
     )
 
 
+def capture_checkpoint(dec, byte_offset: int):
+    """Snapshot a decoder at a window boundary (no pending bytes, nothing
+    in flight); ``byte_offset`` is the capture bytes it has consumed (for a
+    multi-host decoder, the global stream's). The decoder builds its own
+    kind (its ``checkpoint``)."""
+    return dec.checkpoint(byte_offset)
+
+
 def restore_checkpoint(dec, ckpt) -> None:
     """Restore a decoder to a checkpoint; decode continues bit-identically.
-    Refuses a checkpoint of another kind, geometry or topology."""
-    if isinstance(dec, MultiHostDecoder) != isinstance(ckpt, MultiHostCheckpoint):
-        raise ValueError(f"checkpoint kind mismatch: {type(ckpt).__name__} cannot "
-                         f"restore a {type(dec).__name__}")
-    if isinstance(dec, MultiHostDecoder):
-        _restore_multihost(dec, ckpt)
-        return
-    wide = isinstance(dec, WidebandDecoder)
-    if not isinstance(dec, (WindowDecoder, WidebandDecoder)) or isinstance(
-        ckpt, WidebandCheckpoint
-    ) != wide or not isinstance(ckpt, (Checkpoint, WidebandCheckpoint)):
-        raise ValueError(
-            f"checkpoint kind mismatch: {type(ckpt).__name__} cannot "
-            f"restore a {type(dec).__name__}"
-        )
-    if ckpt.window is not None and ckpt.window != dec.spec.window:
-        raise ValueError(
-            f"checkpoint geometry mismatch: saved at a window of {ckpt.window} "
-            f"samples, decoder has {dec.spec.window} (different -windowblocks?)"
-        )
-    hs, halo = dec.spec.halo_staged, dec.spec.halo
-    if not wide:
-        carry = np.asarray(ckpt.carry, np.uint16)
-        if isinstance(dec, MeshDecoder):
-            if carry.shape != (halo,):
-                hint = ("a single-device decoder's tail; resume it without -mesh"
-                        if carry.shape == (hs,) else "different message types?")
-                raise _geometry("carry", carry.shape, (halo,), hint)
-        elif carry.shape != (hs,):
-            hint = ("a mesh decoder's tail: resume it with -mesh, the multi-GPU "
-                    "time-sharded decoder"
-                    if carry.shape == (halo,) else "different message types?")
-            raise _geometry("carry", carry.shape, (hs,), hint)
-        dec.load_state({
-            "carry": carry,
-            "first": ckpt.first,
-            "window_index": ckpt.window_index,
-            "last_block": ckpt.last_block,
-            "dedup_prev": ckpt.prev_digests,
-            # next is rebuilt at every block start (decoder/dedup.py)
-            "dedup_next": (),
-            "lookahead_mark": ckpt.lookahead_mark,
-        })
-        return
-    n, p = dec.n_channels, dec.chspec.history_frames
-    tail = np.asarray(ckpt.chan_tail)
-    if isinstance(dec, WidebandMeshDecoder):
-        if tail.shape != (n, halo):
-            hint = ("a single-card wideband decoder's tail; resume it without -mesh"
-                    if tail.shape == (n, hs) else "different -channels or message types?")
-            raise _geometry("chan_tail", tail.shape, (n, halo), hint)
-        # The pad_shift samples before the halo are read by no stencil.
-        tail = np.concatenate([np.zeros((n, hs - halo), np.uint16), tail], axis=1)
-    elif tail.shape != (n, hs):
-        hint = ("a wideband-mesh decoder's tail: resume it with -channels and -mesh"
-                if tail.shape == (n, halo) else "different -channels or message types?")
-        raise _geometry("chan_tail", tail.shape, (n, hs), hint)
-    if len(ckpt.chan_last_block) != n or len(ckpt.chan_prev_digests) != n:
-        raise ValueError(
-            f"checkpoint geometry mismatch: {len(ckpt.chan_last_block)} channel "
-            f"states, decoder has {n} channels"
-        )
-    hist = np.asarray(ckpt.wb_hist)
-    if hist.shape != (2, n, p):
-        raise ValueError(
-            f"checkpoint geometry mismatch: channelizer history has {hist.shape}, "
-            f"decoder wants {(2, n, p)} (different taps_per_branch?)"
-        )
-    dec.load_state({
-        "wb_hist": hist,
-        "chan_tail": tail,
-        "first": ckpt.first,
-        "window_index": ckpt.window_index,
-        # The per-channel carry is unused on the wideband path (the tails
-        # live in chan_tail); next is rebuilt at every block start.
-        "channels": [
-            {"carry": np.zeros(hs, np.uint16), "first": ckpt.first,
-             "window_index": ckpt.window_index, "last_block": last,
-             "dedup_prev": prev, "dedup_next": ()}
-            for last, prev in zip(ckpt.chan_last_block, ckpt.chan_prev_digests)
-        ],
-        "xchan_seen": ckpt.xchan_seen,
-    })
+    The decoder (its ``restore``) refuses a checkpoint of another kind,
+    geometry or topology."""
+    dec.restore(ckpt)

@@ -54,6 +54,8 @@ from ..protocols.base import (
 )
 from ..protocols.r900 import PAYLOAD_SYMBOLS
 from ..utils.observability import Metrics, span, stamp
+from .byte_queue import ByteQueue
+from .checkpoint import Checkpoint, check_window, geometry_mismatch, require_boundary, require_kind
 from .dedup import BlockDeduper
 
 FilterFn = Callable[[Message], bool]
@@ -174,8 +176,6 @@ class WindowDecoder:
         exact NumPy path for that window.
       filter_fn: optional message filter applied before dedup, matching the
         reference's FilterChain position (main.go:237).
-      backend: accepted for parity with the JAX package's flag; the port
-        always runs its CUDA stencil kernel on the card.
       device: ``None`` (the card, ``cuda``) or ``"cpu"`` (plain PyTorch
         versions). Raises when the card is asked for and there is none.
     """
@@ -186,7 +186,6 @@ class WindowDecoder:
         window_blocks: Optional[int] = 64,
         max_hits: int = 256,
         filter_fn: Optional[FilterFn] = None,
-        backend: str = "jnp",
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
@@ -196,9 +195,7 @@ class WindowDecoder:
             # Minimum window that covers the halo.
             halo = self.cfg.packet_length + self.cfg.symbol_length
             window_blocks = -(-halo // self.cfg.block_size)
-        self.spec: FrontendSpec = make_frontend_spec(
-            self.cfg, window_blocks, max_hits, backend=backend
-        )
+        self.spec: FrontendSpec = make_frontend_spec(self.cfg, window_blocks, max_hits)
         self.filter_fn = filter_fn
         self.metrics = Metrics()
         # Group index -> parsers, aligned with spec.groups order.
@@ -231,8 +228,7 @@ class WindowDecoder:
         self._ahead = None
         #: blocks of the windows dispatched (a short window's valid ones)
         self._blocks_dispatched = 0
-        self._plist: List[np.ndarray] = []
-        self._psize = 0
+        self._queue = ByteQueue()
         #: one-deep dispatch-ahead pipeline: (result handle, meta) of the
         #: window whose results have not been parsed yet.
         self._inflight = None
@@ -252,7 +248,7 @@ class WindowDecoder:
             "last_block": int(self._last_block),
             "dedup_prev": set(self._deduper.prev),
             "dedup_next": set(self._deduper.next),
-            "pending": self._pending.copy(),
+            "pending": self._queue.state(),
             "lookahead_mark": None if self._lookahead_mark < 0 else int(self._lookahead_mark),
         }
 
@@ -267,7 +263,7 @@ class WindowDecoder:
         self._last_block = int(state["last_block"])
         self._deduper.prev = {Digest(*d) for d in state["dedup_prev"]}
         self._deduper.next = {Digest(*d) for d in state["dedup_next"]}
-        self._pending = np.array(state.get("pending", ()), np.uint8)
+        self._queue = ByteQueue(state.get("pending", ()))
         mark = state.get("lookahead_mark")
         self._lookahead_mark = -1 if mark is None else int(mark)
         self._blocks_dispatched = self._window_index * self._window_blocks
@@ -296,25 +292,59 @@ class WindowDecoder:
         """Drop the bytes fed since the last whole window; returns how many.
         The stream then stands at a window boundary, where a checkpoint can
         be taken; the caller feeds the dropped bytes again on resume."""
-        n = self._psize
-        self._pending = np.zeros(0, np.uint8)
-        return n
+        return self._queue.discard()
 
     @property
-    def _pending(self) -> np.ndarray:
-        """Unconsumed IQ bytes, stored as a chunk list so many small feed()
-        calls don't re-copy the whole pending buffer per chunk."""
-        if not self._plist:
-            return np.zeros(0, np.uint8)
-        if len(self._plist) > 1:
-            self._plist = [np.concatenate(self._plist)]
-        return self._plist[0]
+    def in_flight(self) -> bool:
+        """Whether a dispatched window awaits completion."""
+        return self._inflight is not None
 
-    @_pending.setter
-    def _pending(self, value: np.ndarray) -> None:
-        value = np.asarray(value, np.uint8)
-        self._plist = [value] if value.size else []
-        self._psize = int(value.size)
+    # -- checkpoints (decoder/checkpoint.py) ----------------------------------
+
+    def checkpoint(self, byte_offset: int) -> Checkpoint:
+        """The stream's resume point; only at a window boundary (no pending
+        bytes, nothing in flight). ``byte_offset`` is the capture bytes
+        consumed."""
+        require_boundary(self._queue.size, self.in_flight)
+        state = self.export_state()
+        return Checkpoint(
+            byte_offset=byte_offset,
+            window_index=state["window_index"],
+            last_block=state["last_block"],
+            first=state["first"],
+            carry=state["carry"],
+            prev_digests=[tuple(d) for d in state["dedup_prev"]],
+            window=self.spec.window,
+            lookahead_mark=state["lookahead_mark"],
+        )
+
+    def restore(self, ckpt) -> None:
+        """Resume the stream at a :class:`Checkpoint`; decode continues
+        bit-identically. Refuses a checkpoint of another kind or geometry."""
+        require_kind(ckpt, Checkpoint, self)
+        check_window(ckpt.window, self.spec.window)
+        carry = np.asarray(ckpt.carry, np.uint16)
+        want, other, hint = self._carry_geometry()
+        if carry.shape != want:
+            raise geometry_mismatch("carry", carry.shape, want,
+                                    hint if carry.shape == other else "different message types?")
+        self.load_state({
+            "carry": carry,
+            "first": ckpt.first,
+            "window_index": ckpt.window_index,
+            "last_block": ckpt.last_block,
+            "dedup_prev": ckpt.prev_digests,
+            # next is rebuilt at every block start (decoder/dedup.py)
+            "dedup_next": (),
+            "lookahead_mark": ckpt.lookahead_mark,
+        })
+
+    def _carry_geometry(self) -> Tuple[Tuple[int], Tuple[int], str]:
+        """The carry shape of this decoder's checkpoints, and the other
+        decoder's (the mesh decoder's) with the hint of its refusal."""
+        return ((self.spec.halo_staged,), (self.spec.halo,),
+                "a mesh decoder's tail: resume it with -mesh, the multi-GPU "
+                "time-sharded decoder")
 
     # -- capture / streaming APIs ------------------------------------------
 
@@ -322,18 +352,12 @@ class WindowDecoder:
         """Feed arbitrary-length IQ bytes; decode any completed windows.
 
         The chunk is copied, so the caller may reuse its buffer at once."""
-        chunk = np.array(iq_bytes, np.uint8, copy=True).reshape(-1)
-        if chunk.size:
-            self._plist.append(chunk)
-            self._psize += int(chunk.size)
+        self._queue.push(iq_bytes)
         out = self._release_fed()
-        wb = self.window_bytes
-        if self._psize >= wb:
-            buf = self._pending  # one concatenate for all buffered chunks
-            n_win = buf.size // wb
-            for i in range(n_win):
-                out.extend(self._process_window(buf[i * wb : (i + 1) * wb]))
-            self._pending = buf[n_win * wb :]
+        windows = self._queue.take(self.window_bytes)
+        if windows:
+            for window in windows:
+                out.extend(self._process_window(window))
             out.extend(self._release_fed())
         return out
 
@@ -341,20 +365,14 @@ class WindowDecoder:
         """The look-ahead's messages of every block fed so far."""
         if self._ahead is None and self._ahead_fetch is None:
             return []
-        return self._release(self._blocks_dispatched + self._psize // (2 * self.cfg.block_size))
+        return self._release(self._blocks_dispatched
+                             + self._queue.size // (2 * self.cfg.block_size))
 
     def flush(self) -> List[Tuple[int, Message]]:
         """Decode remaining full blocks (zero-padding the final window) and
         drain the dispatch-ahead pipeline."""
-        bs2 = 2 * self.cfg.block_size
-        full_blocks = self._pending.size // bs2
-        out: List[Tuple[int, Message]] = []
-        if full_blocks:
-            valid = self._pending[: full_blocks * bs2]
-            self._pending = self._pending[full_blocks * bs2 :]
-            padded = np.zeros(self.window_bytes, np.uint8)
-            padded[: valid.size] = valid
-            out.extend(self._process_window(padded, valid_blocks=full_blocks))
+        padded, blocks = self._queue.take_blocks(2 * self.cfg.block_size, self.window_bytes)
+        out = self._process_window(padded, valid_blocks=blocks) if blocks else []
         out.extend(self.drain())
         return out
 
@@ -377,10 +395,7 @@ class WindowDecoder:
 
     def _dispatch(self, inflight) -> List[Tuple[int, Message]]:
         """Make ``inflight`` the pending window; complete the previous one."""
-        msgs: List[Tuple[int, Message]] = []
-        if self._inflight is not None:
-            prev, self._inflight = self._inflight, None
-            msgs = self._complete_inflight(prev)
+        msgs = self.drain()
         self._inflight = inflight
         return msgs
 
@@ -427,20 +442,12 @@ class WindowDecoder:
             out.extend(self.drain())
         return out
 
-    def decode_capture(
-        self, iq_bytes: np.ndarray, dedup: bool = True
-    ) -> List[Tuple[int, Message]]:
+    def decode_capture(self, iq_bytes: np.ndarray) -> List[Tuple[int, Message]]:
         """Decode a whole capture; returns (block_index, message) pairs."""
         self.reset()
-        self._dedup_enabled = dedup
-        try:
-            out = self.feed(np.asarray(iq_bytes, np.uint8))
-            out.extend(self.flush())
-        finally:
-            self._dedup_enabled = True
+        out = self.feed(np.asarray(iq_bytes, np.uint8))
+        out.extend(self.flush())
         return out
-
-    _dedup_enabled: bool = True
 
     # -- internals ----------------------------------------------------------
 
@@ -825,9 +832,7 @@ class WindowDecoder:
                         if self.filter_fn is not None and not self.filter_fn(msg):
                             self.metrics.messages_dropped_filter += 1
                             continue
-                        if self._dedup_enabled and not self._deduper.check(
-                            mk_digest(msg)
-                        ):
+                        if not self._deduper.check(mk_digest(msg)):
                             self.metrics.messages_dropped_dup += 1
                             continue
                         self.metrics.messages_out += 1

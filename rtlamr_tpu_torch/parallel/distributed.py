@@ -44,12 +44,13 @@ from __future__ import annotations
 
 import hashlib
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..decoder.checkpoint import MultiHostCheckpoint, geometry_mismatch, require_kind
 from ..decoder.pipeline import FilterFn
 from ..device import DeviceLike
 from ..protocols.base import Message, Parser, digest as mk_digest
@@ -205,34 +206,63 @@ class MultiHostDecoder:
         msgs = self._local.drain()
         return self._seam_dedup(msgs) if had_prev else msgs
 
-    def export_state(self) -> Dict[str, object]:
-        """The stream state as plain values (drain first): the window
-        counter, the stream-head flag, process 0's carry (the stream tail,
-        ``halo_staged`` u16), the local block counter and dedup digests,
-        and process 0's seam predecessor ``(block, hashes)`` or None."""
-        loc = self._local.export_state()
+    def checkpoint(self, byte_offset: int) -> MultiHostCheckpoint:
+        """This process's resume point (drain first; the carry rows as
+        decoder/checkpoint.py says); ``byte_offset``: the global stream's."""
+        loc = self._local.export_state()  # raises with a super-batch in flight
+        carry = None
+        if not self._first:
+            carry = np.zeros((self.n_local, self.spec.halo), np.uint16)
+            if self.process_id == 0:
+                carry[0] = self._carry[self.spec.pad_shift :]  # the stream tail
         tail = self._prev_batch_tail
-        return {
-            "window_index": self._window_index,
-            "first": self._first,
-            "carry": self._carry.copy(),
-            "last_block": loc["last_block"],
-            "dedup_prev": loc["dedup_prev"],
-            "prev_batch_tail": None if tail is None else (tail[0], set(tail[1])),
-        }
+        return MultiHostCheckpoint(
+            byte_offset=byte_offset,
+            window_index=self._window_index,
+            first=self._first,
+            last_block=loc["last_block"],
+            carry_local=carry,
+            prev_digests=[tuple(d) for d in loc["dedup_prev"]],
+            prev_batch_tail=None if tail is None else (tail[0], sorted(tail[1])),
+            num_processes=self.num_processes,
+            process_id=self.process_id,
+            n_global=self.n_global,
+            scan_windows=self.scan_windows,
+            window=self.spec.window,
+        )
 
-    def load_state(self, state: Dict[str, object]) -> None:
-        """Resume a stream from :meth:`export_state` values."""
+    def restore(self, ckpt) -> None:
+        """Resume this process's stream at a :class:`MultiHostCheckpoint`;
+        refuses one of another kind or saved for another topology."""
+        require_kind(ckpt, MultiHostCheckpoint, self)
+        got = (ckpt.num_processes, ckpt.n_global, ckpt.process_id, ckpt.scan_windows, ckpt.window)
+        want = (self.num_processes, self.n_global, self.process_id, self.scan_windows,
+                self.spec.window)
+        if got != want:
+            raise ValueError(
+                f"checkpoint topology mismatch: saved for {got[0]} procs x {got[1]} devices "
+                f"(proc {got[2]}, K={got[3]}, window={got[4]}), decoder is {want[0]} x "
+                f"{want[1]} (proc {want[2]}, K={want[3]}, window={want[4]})")
+        halo, hs = self.spec.halo, self.spec.halo_staged
+        # Row 0 is process 0's stream tail (other processes receive theirs);
+        # the pad_shift samples before the halo are read by no stencil.
+        carry = np.zeros(hs, np.uint16)
+        if ckpt.carry_local is not None:
+            rows = np.asarray(ckpt.carry_local, np.uint16)
+            if rows.size != self.n_local * halo:
+                raise geometry_mismatch("carry", rows.shape, (self.n_local, halo),
+                                        "different message types?")
+            if self.process_id == 0:
+                carry[hs - halo :] = rows.reshape(-1, halo)[0]
         self.reset()
         self._local.load_state({
             "carry": self._carry[self.spec.pad_shift :], "first": False, "window_index": 0,
-            "last_block": state["last_block"], "dedup_prev": state["dedup_prev"],
-            "dedup_next": (),
+            "last_block": ckpt.last_block, "dedup_prev": ckpt.prev_digests, "dedup_next": (),
         })
-        self._window_index = int(state["window_index"])
-        self._first = bool(state["first"])
-        self._carry = np.asarray(state["carry"], np.uint16).copy()
-        tail = state["prev_batch_tail"]
+        self._window_index = int(ckpt.window_index)
+        self._first = bool(ckpt.first)
+        self._carry = carry
+        tail = ckpt.prev_batch_tail
         self._prev_batch_tail = None if tail is None else (tail[0], set(tail[1]))
 
     @staticmethod

@@ -81,6 +81,14 @@ def stage_superbatch(
     return sb
 
 
+def require_halo_window(spec: FrontendSpec) -> None:
+    """Refuse a shard's window shorter than the halo its next shard takes."""
+    if spec.window < spec.halo:
+        raise ValueError("per-shard window must cover the halo: need window_blocks >= "
+                         f"{-(-spec.halo // spec.block_size)} "
+                         f"(window {spec.window} < halo {spec.halo})")
+
+
 def _copy16(dst: torch.Tensor, src: torch.Tensor) -> None:
     """``dst.copy_(src)`` for u16 tensors, between any two devices (moved
     as int16: the same bytes)."""
@@ -90,6 +98,15 @@ def _copy16(dst: torch.Tensor, src: torch.Tensor) -> None:
 class _Events(list):
     """The copy events of a super-batch's fetch, one a device, waited for as
     one (``pipeline.fetch`` calls ``synchronize``)."""
+
+    @classmethod
+    def record(cls, devices: Sequence[torch.device]) -> "_Events":
+        """An event recorded on the current stream of each distinct device."""
+        events = cls()
+        for dev in dict.fromkeys(devices):
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(dev))
+        return events
 
     def synchronize(self) -> None:
         for event in self:
@@ -120,7 +137,6 @@ class MeshDecoder(WindowDecoder):
         window_blocks: Optional[int] = 64,
         max_hits: int = 256,
         filter_fn: Optional[FilterFn] = None,
-        backend: str = "jnp",
         scan_windows: int = 2,
     ):
         self.devices = resolve_devices(devices, "MeshDecoder")
@@ -129,13 +145,8 @@ class MeshDecoder(WindowDecoder):
         self.n_devices = len(self.devices)
         self.scan_windows = scan_windows
         super().__init__(parsers, window_blocks=window_blocks, max_hits=max_hits,
-                         filter_fn=filter_fn, backend=backend, device=self.devices[0])
-        if self.spec.window < self.spec.halo:
-            raise ValueError(
-                "per-shard window must cover the halo: need window_blocks >= "
-                f"{-(-self.spec.halo // self.spec.block_size)} "
-                f"(window {self.spec.window} < halo {self.spec.halo})"
-            )
+                         filter_fn=filter_fn, device=self.devices[0])
+        require_halo_window(self.spec)
 
     def reset(self) -> None:
         super().reset()
@@ -152,14 +163,13 @@ class MeshDecoder(WindowDecoder):
             raise ValueError(f"load_state: carry of {carry.shape}, want ({self.spec.halo},)")
         self._carry = torch.from_numpy(carry.copy()).to(self.devices[0])
 
+    def _carry_geometry(self) -> Tuple[Tuple[int], Tuple[int], str]:
+        return ((self.spec.halo,), (self.spec.halo_staged,),
+                "a single-device decoder's tail; resume it without -mesh")
+
     @property
     def window_bytes(self) -> int:  # feed() granularity: one super-batch
         return 2 * self.spec.window * self.n_devices * self.scan_windows
-
-    @property
-    def in_flight(self) -> bool:
-        """Whether a dispatched super-batch awaits completion."""
-        return self._inflight is not None
 
     def decode_segment(
         self, super_bytes: np.ndarray, valid_blocks: Optional[int], carry: np.ndarray,
@@ -245,12 +255,7 @@ class MeshDecoder(WindowDecoder):
         for s, windows in enumerate(shards):
             firsts = [self._first and s == 0 and kk == 0 for kk in range(k)]
             host[s].copy_(decode_windows_scan(spec, windows, firsts), non_blocking=cuda)
-        events = _Events()
-        if cuda:
-            for dev in dict.fromkeys(self.devices):
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-                events.append(event)
+        events = _Events.record(self.devices) if cuda else None
 
         wb = w // spec.block_size
         total = n * k * wb if valid_blocks is None else valid_blocks
@@ -268,7 +273,7 @@ class MeshDecoder(WindowDecoder):
         self._first = False
         # Rows in global window order; rows past the last valid window are
         # not completed.
-        out = self._dispatch(((host.view(n * k, -1), events if cuda else None), metas))
+        out = self._dispatch(((host.view(n * k, -1), events), metas))
         if drain:
             out.extend(self.drain())
         return out

@@ -35,6 +35,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..decoder.byte_queue import ByteQueue
+from ..decoder.checkpoint import (WidebandCheckpoint, check_window, geometry_mismatch,
+                                  require_boundary, require_kind)
 from ..decoder.pipeline import WindowDecoder, WindowMeta, enqueue_fetch, fetch
 from ..device import DeviceLike, resolve_device
 from ..ops.channelizer import ChannelizerSpec, channel_offsets_hz
@@ -162,8 +165,7 @@ class WidebandDecoder:
         )
         self._first = True
         self._window_index = 0
-        self._plist: List[np.ndarray] = []
-        self._psize = 0
+        self._queue = ByteQueue()
         self._inflight = None
         self._xchan = CrossChannelDeduper()
 
@@ -179,9 +181,12 @@ class WidebandDecoder:
     def discard_pending(self) -> int:
         """Drop the wideband bytes fed since the last whole super-step;
         returns how many (see :meth:`WindowDecoder.discard_pending`)."""
-        n = self._psize
-        self._pending = np.zeros(0, np.uint8)
-        return n
+        return self._queue.discard()
+
+    @property
+    def in_flight(self) -> bool:
+        """Whether a dispatched super-step awaits completion."""
+        return self._inflight is not None
 
     @property
     def wideband_sample_rate(self) -> int:
@@ -226,7 +231,7 @@ class WidebandDecoder:
             "window_index": int(self._window_index),
             "channels": [c.export_state() for c in self._chan],
             "xchan_seen": [(tuple(d), b, c) for d, (b, c) in self._xchan.seen.items()],
-            "pending": self._pending.copy(),
+            "pending": self._queue.state(),
         }
 
     def load_state(self, state: Dict[str, object]) -> None:
@@ -260,7 +265,7 @@ class WidebandDecoder:
         for c, st in zip(self._chan, channels):
             c.load_state(st)
         self._xchan.seen = {Digest(*d): (b, c) for d, b, c in state.get("xchan_seen", ())}
-        self._pending = np.array(state.get("pending", ()), np.uint8)
+        self._queue = ByteQueue(state.get("pending", ()))
 
     def _tail_rows(self) -> np.ndarray:
         """The carried (N, halo_staged) channel tails, on the host."""
@@ -274,53 +279,89 @@ class WidebandDecoder:
             self._wb_hist = torch.from_numpy(hist).to(self.device)
         self._chan_tail = torch.from_numpy(tail).to(self.device)
 
+    # -- checkpoints (decoder/checkpoint.py) ----------------------------------
+
+    def checkpoint(self, byte_offset: int) -> WidebandCheckpoint:
+        """The stream's resume point; only at a super-step boundary (no
+        pending bytes, nothing in flight). ``byte_offset`` is the wideband
+        bytes consumed."""
+        require_boundary(self._queue.size, self.in_flight)
+        state = self.export_state()
+        chans = state["channels"]
+        return WidebandCheckpoint(
+            byte_offset=byte_offset,
+            window_index=state["window_index"],
+            first=state["first"],
+            wb_hist=state["wb_hist"],
+            chan_tail=np.ascontiguousarray(self._saved_tail(state["chan_tail"])),
+            chan_last_block=[c["last_block"] for c in chans],
+            chan_prev_digests=[[tuple(d) for d in c["dedup_prev"]] for c in chans],
+            xchan_seen=state["xchan_seen"],
+            window=self.spec.window,
+        )
+
+    def restore(self, ckpt) -> None:
+        """Resume the stream at a :class:`WidebandCheckpoint`; decode
+        continues bit-identically. Refuses a checkpoint of another kind or
+        geometry."""
+        require_kind(ckpt, WidebandCheckpoint, self)
+        check_window(ckpt.window, self.spec.window)
+        n, p = self.n_channels, self.chspec.history_frames
+        tail = self._loaded_tail(np.asarray(ckpt.chan_tail))
+        if len(ckpt.chan_last_block) != n or len(ckpt.chan_prev_digests) != n:
+            raise ValueError(f"checkpoint geometry mismatch: {len(ckpt.chan_last_block)} "
+                             f"channel states, decoder has {n} channels")
+        hist = np.asarray(ckpt.wb_hist)
+        if hist.shape != (2, n, p):
+            raise geometry_mismatch("channelizer history", hist.shape, (2, n, p),
+                                    "different taps_per_branch?")
+        self.load_state({
+            "wb_hist": hist,
+            "chan_tail": tail,
+            "first": ckpt.first,
+            "window_index": ckpt.window_index,
+            # A channel decoder's own carry is unused here (the tails live
+            # in chan_tail); next is rebuilt at every block start.
+            "channels": [
+                {"carry": np.zeros(self.spec.halo_staged, np.uint16), "first": ckpt.first,
+                 "window_index": ckpt.window_index, "last_block": last,
+                 "dedup_prev": prev, "dedup_next": ()}
+                for last, prev in zip(ckpt.chan_last_block, ckpt.chan_prev_digests)
+            ],
+            "xchan_seen": ckpt.xchan_seen,
+        })
+
+    def _saved_tail(self, rows: np.ndarray) -> np.ndarray:
+        """A checkpoint's channel tails, from :meth:`export_state`'s rows."""
+        return rows
+
+    def _loaded_tail(self, tail: np.ndarray) -> np.ndarray:
+        """A checkpoint's channel tails as :meth:`load_state` takes them;
+        refuses another decoder's."""
+        n, hs, halo = self.n_channels, self.spec.halo_staged, self.spec.halo
+        if tail.shape != (n, hs):
+            hint = ("a wideband-mesh decoder's tail: resume it with -channels and -mesh"
+                    if tail.shape == (n, halo) else "different -channels or message types?")
+            raise geometry_mismatch("chan_tail", tail.shape, (n, hs), hint)
+        return tail
+
     # -- streaming ------------------------------------------------------------
-
-    @property
-    def _pending(self) -> np.ndarray:
-        """Unconsumed wideband bytes (chunk list; one concatenate per
-        super-step instead of one per feed call)."""
-        if not self._plist:
-            return np.zeros(0, np.uint8)
-        if len(self._plist) > 1:
-            self._plist = [np.concatenate(self._plist)]
-        return self._plist[0]
-
-    @_pending.setter
-    def _pending(self, value: np.ndarray) -> None:
-        value = np.asarray(value, np.uint8)
-        self._plist = [value] if value.size else []
-        self._psize = int(value.size)
 
     def feed(self, wb_bytes: np.ndarray) -> List[Triple]:
         """Feed wideband IQ bytes; returns (channel, block, message).
 
         The chunk is copied, so the caller may reuse its buffer at once."""
-        chunk = np.array(wb_bytes, np.uint8, copy=True).reshape(-1)
-        if chunk.size:
-            self._plist.append(chunk)
-            self._psize += int(chunk.size)
+        self._queue.push(wb_bytes)
         out: List[Triple] = []
-        wb = self.window_bytes
-        if self._psize >= wb:
-            buf = self._pending
-            n_win = buf.size // wb
-            for i in range(n_win):
-                out.extend(self._process_chunk(buf[i * wb : (i + 1) * wb]))
-            self._pending = buf[n_win * wb :]
+        for chunk in self._queue.take(self.window_bytes):
+            out.extend(self._process_chunk(chunk))
         return out
 
     def flush(self) -> List[Triple]:
         """Zero-pad and decode remaining full per-channel blocks; drain."""
-        bs_wide = 2 * self.chspec.n_channels * self.cfg.block_size
-        full_blocks = self._pending.size // bs_wide
-        out: List[Triple] = []
-        if full_blocks:
-            valid = self._pending[: full_blocks * bs_wide]
-            self._pending = self._pending[full_blocks * bs_wide :]
-            padded = np.zeros(self.window_bytes, np.uint8)
-            padded[: valid.size] = valid
-            out.extend(self._process_chunk(padded, valid_blocks=full_blocks))
+        padded, blocks = self._queue.take_blocks(
+            2 * self.chspec.n_channels * self.cfg.block_size, self.window_bytes)
+        out = self._process_chunk(padded, valid_blocks=blocks) if blocks else []
         out.extend(self.drain())
         return out
 
@@ -353,10 +394,7 @@ class WidebandDecoder:
         meta = (staged, self._first, valid_blocks, self._window_index)
         self._first = False
         self._window_index += 1
-        out: List[Triple] = []
-        if self._inflight is not None:
-            prev, self._inflight = self._inflight, None
-            out.extend(self._complete(prev))
+        out = self.drain()
         self._inflight = (enqueue_fetch(packed), meta)
         return out
 

@@ -52,13 +52,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..decoder.checkpoint import geometry_mismatch
 from ..decoder.pipeline import FilterFn, WindowMeta, fetch
 from ..device import DeviceLike
 from ..ops.channelizer_fused import channelize_requantize_fused
 from ..ops.frontend import decode_windows_scan, packed_size
 from ..ops.spec import staged_geometry
 from ..protocols.base import Parser
-from .mesh import _Events, resolve_devices
+from .mesh import _Events, require_halo_window, resolve_devices
 from .wideband import Triple, WidebandDecoder
 
 
@@ -107,12 +108,7 @@ class WidebandMeshDecoder(WidebandDecoder):
         super().__init__(parsers, n_channels, window_blocks=window_blocks, max_hits=max_hits,
                          filter_fn=filter_fn, cross_channel_dedup=cross_channel_dedup,
                          device=self.devices[0])
-        if self.spec.window < self.spec.halo:
-            raise ValueError(
-                "per-shard window must cover the halo: need window_blocks >= "
-                f"{-(-self.spec.halo // self.spec.block_size)} "
-                f"(window {self.spec.window} < halo {self.spec.halo})"
-            )
+        require_halo_window(self.spec)
 
     def device_of(self, ci: int, x: int) -> torch.device:
         """The device of channel shard ``ci`` and time shard ``x``."""
@@ -157,6 +153,18 @@ class WidebandMeshDecoder(WidebandDecoder):
                 self.device_of(ci, self.tdev - 1))
             for ci in range(self.cdev)
         ]
+
+    def _saved_tail(self, rows: np.ndarray) -> np.ndarray:
+        return rows[:, self.spec.pad_shift :]  # the JAX wideband mesh's (N, halo)
+
+    def _loaded_tail(self, tail: np.ndarray) -> np.ndarray:
+        n, hs, halo = self.n_channels, self.spec.halo_staged, self.spec.halo
+        if tail.shape != (n, halo):
+            hint = ("a single-card wideband decoder's tail; resume it without -mesh"
+                    if tail.shape == (n, hs) else "different -channels or message types?")
+            raise geometry_mismatch("chan_tail", tail.shape, (n, halo), hint)
+        # The pad_shift samples before the halo are read by no stencil.
+        return np.concatenate([np.zeros((n, hs - halo), np.uint16), tail], axis=1)
 
     def decode_superbatch(self, wb_bytes: np.ndarray,
                           valid_blocks: Optional[int] = None) -> List[Triple]:
@@ -214,20 +222,12 @@ class WidebandMeshDecoder(WidebandDecoder):
                 left = rows[:, k * w :]
             self._chan_tail[ci] = left.clone()
         self._wb_hist = u16[-p * n :].clone()
-        events = _Events()
-        if cuda:
-            for dev in dict.fromkeys(self.devices):
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-                events.append(event)
+        events = _Events.record(self.devices) if cuda else None
         meta = (staged, first, valid_blocks, self._window_index)
         self._window_index += self.tdev * k
         self._first = False
-        out: List[Triple] = []
-        if self._inflight is not None:
-            prev, self._inflight = self._inflight, None
-            out = self._complete(prev)
-        self._inflight = ((host, events if cuda else None), meta)
+        out = self.drain()
+        self._inflight = ((host, events), meta)
         return out
 
     def _complete(self, inflight) -> List[Triple]:

@@ -117,6 +117,17 @@ def cut_at(kind, iq, wb):
 CUTS = ["byte0", "window_aligned", "mid_window", "final_partial"]
 
 
+def discard_pending(dec) -> int:
+    """``dec.discard_pending()``: the bytes fed since the last whole window
+    dropped, their count. The JAX package's decoders have no such method, so
+    their queue is emptied here."""
+    if hasattr(dec, "discard_pending"):
+        return dec.discard_pending()
+    n = dec._pending.size
+    dec._pending = np.zeros(0, np.uint8)
+    return n
+
+
 def resume(make, data, cut, path, writer=None, reader=None):
     """Feed ``data[:cut]`` into ``make()``, drain, checkpoint at the window
     boundary, save to ``path``, load into a fresh ``make()``, restore, feed
@@ -126,8 +137,7 @@ def resume(make, data, cut, path, writer=None, reader=None):
     r_make, r_load, r_restore = reader or (make, load_checkpoint, restore_checkpoint)
     a = w_make()
     got = as_list(a.feed(data[:cut])) + as_list(a.drain())
-    boundary = cut - a._pending.size
-    a._pending = np.zeros(0, np.uint8)
+    boundary = cut - discard_pending(a)
     saved = w_capture(a, boundary)
     saved.save(path)
     b = r_make()

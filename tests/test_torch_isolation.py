@@ -2,6 +2,7 @@
 ``chip_smoke.py`` loads neither JAX nor anything of the JAX package
 ``rtlamr_tpu``, and no source line of the port imports them."""
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -52,3 +53,26 @@ def test_no_source_line_imports_the_reference():
         if pattern.match(line)
     ]
     assert len(files) > 30 and bad == []
+
+
+def test_checkpoint_module_knows_no_decoder():
+    """``decoder/checkpoint.py`` holds the file formats beneath every
+    decoder, which builds and restores its own kind: it imports no
+    ``parallel`` module and not ``decoder.pipeline``, and names no decoder
+    class."""
+    package = ["rtlamr_tpu_torch", "decoder"]
+    tree = ast.parse((PORT / "decoder" / "checkpoint.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            imported |= {module} | {f"{module}.{a.name}" for a in node.names}
+    assert "numpy" in imported
+    assert sorted(m for m in imported if m.startswith(
+        ("rtlamr_tpu_torch.parallel", "rtlamr_tpu_torch.decoder.pipeline"))) == []
+    decoders = {"WindowDecoder", "MeshDecoder", "WidebandDecoder", "WidebandMeshDecoder",
+                "MultiHostDecoder"}
+    assert sorted({n.id for n in ast.walk(tree) if isinstance(n, ast.Name)} & decoders) == []

@@ -514,7 +514,7 @@ def test_native_file_path_matches_jax_process_host_staged(max_hits, tmp_path):
     got = native_ring_decode(dec, str(path))
 
     jdec = JaxDecoder([jax_parser(n, 8) for n in NAMES], window_blocks=48,
-                      max_hits=max_hits, backend="jnp")
+                      max_hits=max_hits)
     carry = np.zeros(hs, np.uint16)
     want = []
     n_full = iq.size // (2 * w)
