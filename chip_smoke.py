@@ -140,7 +140,25 @@ a non-zero exit code and no result line:
             kernel, L2 flushed before each launch), the plain version's,
             and the bound (bytes at the HBM rate against the bank's
             integer operations at the card's int32 rate).
-15. the kernels line, the card line, and the result line.
+15. search  the search kernels (``csrc/search.cu``) against the plain
+            ``pack_results(search_slice(...))`` on the card, byte for byte:
+            the benchmark cell's spec and its look-ahead's (guards
+            included) on planted windows 1 and 5 of the decode phase's
+            capture, on a window that keeps a packet of every type and on
+            random bytes, the cell's spec under a dense planted mask that
+            overflows every capacity, the throughput spec on a planted
+            window, and escalation's high-capacity spec on both; then the
+            time of a search at the cell's shape (the all-types window,
+            which the kernels line reports, and window 1) and at the
+            throughput shape, each beside the packets it kept (CUDA events
+            around the wrapper, and torch.profiler's
+            record of the three kernels summed, L2 flushed before each
+            call), the plain version's, and the bound: the mask read and
+            the packed buffer written at the HBM rate for the kernels' own
+            time; for the time by events, that or the launch floor (three
+            empty kernels replayed from a CUDA graph, by events), the
+            larger.
+16. the kernels line, the card line, and the result line.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version do not count.
@@ -191,10 +209,18 @@ from rtlamr_tpu_torch.ops.channelizer_fused import (
     kernel_library,
 )
 from rtlamr_tpu_torch.ops.channelizer_mix import mix_op_count
-from rtlamr_tpu_torch.ops.frontend import decode_window_staged_packed, run_window, unpack_results
+from rtlamr_tpu_torch.ops.frontend import (
+    decode_window_staged_packed,
+    pack_results,
+    run_window,
+    unpack_results,
+)
+from rtlamr_tpu_torch.ops.search import lookahead_guards, search_kernel, search_slice
 from rtlamr_tpu_torch.ops.spec import (
     lookahead_geometry,
+    lookahead_spec,
     make_frontend_spec,
+    packed_size,
     stage_host,
     staged_geometry,
 )
@@ -213,7 +239,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SAMPLE_BIN = os.path.join(ROOT, "tests", "fixtures", "sample.bin")
 ALL = ("scm", "scm+", "idm", "r900")  # -msgtype=all
 #: the hand-written kernels: csrc/decode_stencil.cu holds the first two
-KERNELS = ("decode_stencil", "lookahead_mask", "channelizer")
+KERNELS = ("decode_stencil", "lookahead_mask", "channelizer", "search")
 WIDE_CHANNELS = 12  # bench_wideband.py's N: the whole 902-928 MHz band
 #: worker processes of the oracle run (the card machine has 8 cores)
 ORACLE_WORKERS = 8
@@ -462,11 +488,13 @@ def device_profile():
         torch.cuda.synchronize()
 
 
-def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3, flush=None) -> float:
-    """Mean device time of the CUDA kernel named ``kernel`` over ``reps``
-    calls of ``fn``, from torch.profiler's record of it (so no host gap is
-    counted), with ``flush`` zeroed before each call as in :func:`event_ms`.
-    Raises when the profiler recorded no launch of it."""
+def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3, flush=None,
+              per_call: int = 1) -> float:
+    """Mean device time a call of ``fn`` spends in the ``per_call`` CUDA
+    kernels whose names hold ``kernel``, over ``reps`` calls, from
+    torch.profiler's record of them (so no host gap is counted), with
+    ``flush`` zeroed before each call as in :func:`event_ms`. Raises when
+    the profiler did not record every launch."""
     from torch.autograd import DeviceType
 
     for _ in range(warm):
@@ -479,13 +507,13 @@ def kernel_ms(fn, kernel: str, reps: int = 20, warm: int = 3, flush=None) -> flo
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel in e.key]
     n = sum(e.count for e in rows)
-    if n != reps:
+    if n != reps * per_call:
         starts = sorted(e.time_range.start for e in prof.events()
                         if e.device_type == DeviceType.CUDA and kernel in e.key)
         gaps = [round(b - a) for a, b in zip(starts, starts[1:])]
         check(False, f"profiler: {n} launches of {kernel} recorded for {reps} calls; "
               f"us between recorded starts {gaps}")
-    return sum(e.self_device_time_total for e in rows) / n / 1e3
+    return sum(e.self_device_time_total for e in rows) / reps / 1e3
 
 
 def profile_window(fn):
@@ -528,14 +556,15 @@ def phase_build():
     # the channelizer's libraries: each (N, tap class) that phase k2 launches,
     # which covers the wideband paths' N = 12 and 4 at 8 taps, and the
     # channel blocks of phase wide_mesh
-    libs = list(build.build_many(["decode_stencil"] + list(dict.fromkeys(
+    libs = list(build.build_many(["decode_stencil", "search"] + list(dict.fromkeys(
         kernel_library(n, p == FIXED_TAPS) for n, p in K2_CASES)) + [
         kernel_library(n, True, c0, rows) for n, c0, rows in K2_BLOCKS]))  # one nvcc each, together
     secs = time.perf_counter() - t0
     emit("build", kernels=list(KERNELS), seconds=round(secs, 3),
          nvcc_seconds={k: round(float(build.BUILD_LOG[k]["seconds"]), 3) for k in libs},
          ptxas={"decode_stencil": ptxas_lines("decode_stencil"),
-                "channelizer": ptxas_summary("channelizer")})
+                "channelizer": ptxas_summary("channelizer"),
+                "search": ptxas_summary("search")})
 
 
 def ptxas_summary(name: str) -> dict:
@@ -687,7 +716,7 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
         clock.wrap(dec, name)
     for name in ("decode_window_staged_packed", "fetch", "enqueue_fetch"):
         clock.wrap(pipeline_mod, name)
-    decode_stencil.launches = lookahead_mask.launches = 0
+    decode_stencil.launches = lookahead_mask.launches = search_kernel.launches = 0
     t0 = time.perf_counter()
     try:
         msgs = feed_all(dec)
@@ -695,6 +724,7 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
         clock.restore()
     elapsed = time.perf_counter() - t0
     launches, la_launches = decode_stencil.launches, lookahead_mask.launches
+    search_launches = search_kernel.launches
     s = clock.s
     n_win = dec.metrics.windows_decoded
     host_ms = {k: v * 1e3 / n_win for k, v in {
@@ -718,6 +748,10 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     # every window but the stream's first and the flush's short one looks ahead
     check(la_launches == launches - 2,
           f"decode: {la_launches} look-ahead mask launches for {launches} windows")
+    # one search a window program (escalations included) and a look-ahead
+    check(search_launches == launches + la_launches,
+          f"decode: {search_launches} search launches for {launches} windows and "
+          f"{la_launches} look-aheads")
 
     # Where the device time of one window goes (a planted window, not first).
     spec = dec.spec
@@ -735,14 +769,14 @@ def phase_decode(card: str, iq: np.ndarray, planted: set):
     samples = iq.size // 2
     emit("decode", card=card, windows=dec.metrics.windows_decoded,
          messages=len(msgs), planted=len(planted), launches=launches,
-         lookahead_launches=la_launches, samples=samples, seconds=elapsed, samples_per_s=samples / elapsed,
+         lookahead_launches=la_launches, search_launches=search_launches, samples=samples, seconds=elapsed, samples_per_s=samples / elapsed,
          hit_overflows=dec.metrics.hit_overflows,
          host_ms_per_window=host_ms,
          window_program_ms=window_ms, window_program_no_gates_ms=no_gate_ms,
          window_program_host_enqueue_ms=enqueue_ms,
          window_program_kernels=kernels, window_program_kernel_ms=busy_ms,
          window_program_top_kernels=top)
-    return msgs, (launches, la_launches), host_ms
+    return msgs, (launches, la_launches, search_launches), host_ms
 
 
 def phase_batch(iq: np.ndarray, want_msgs) -> int:
@@ -902,6 +936,133 @@ def phase_lookahead_time(card: str, iq: np.ndarray):
          roofline_share_events=bound_ms / ms)
     return {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def all_types_window(spec) -> np.ndarray:
+    """A staged window of ``spec`` (16 blocks, ``-msgtype=all``) that finds
+    one packet of each type: SCM, SCM+, R900 and IDM bursts, one after the
+    other, all starting in the samples window 1 searches (``window -
+    halo`` on, a hit marking a packet's start), window 1 staged."""
+    w, b = spec.window, spec.block_size
+    first = w - spec.halo
+    bursts = [
+        synth.bits_to_burst(synth.make_scm_bits(meter_id=1_000_001, consumption=7), first + b),
+        synth.bits_to_burst(synth.make_scmplus_bits(endpoint_id=4_000_002, consumption=8),
+                            first + 7 * b // 2),
+        synth.r900_burst(synth.make_r900_symbols(meter_id=3_000_003), first + 13 * b // 2),
+        synth.bits_to_burst(synth.make_idm_bits(serial=2_000_004), first + 19 * b // 2),
+    ]
+    iq = synth.render_iq(3 * w + spec.halo, bursts, spec.chip_length, noise=3.0, seed=2)
+    return staged_windows(spec, iq, 2)[1]
+
+
+def dense_mask(mask2d: torch.Tensor, n_groups: int, seed: int = 17) -> torch.Tensor:
+    """A mask of ``mask2d``'s shape with each group's bit set at one
+    position in 16, at random: every capacity overflows."""
+    rng = np.random.default_rng(seed)
+    hits = rng.random((*mask2d.shape, n_groups)) < 1 / 16
+    out = (hits.astype(np.uint8) << np.arange(n_groups, dtype=np.uint8)).sum(-1)
+    out = out.astype(np.uint8)
+    return torch.from_numpy(out).to(mask2d.device)
+
+
+def search_cases(capture: np.ndarray):
+    """(spec, label, staged u16 window, look-ahead, dense mask) of the
+    search phase: the benchmark cell's spec (``-msgtype=all``, chip length
+    72, 16-block windows) on planted windows 1 and 5 of the decode phase's
+    capture, on a window that keeps a packet of every type, on random
+    bytes, and under a dense planted mask, with its look-ahead but for the
+    last; the throughput spec (1024 blocks) on a planted window;
+    escalation's high-capacity spec of both on a planted window."""
+    specs = {n: WindowDecoder([new_parser(x, 72) for x in ALL], window_blocks=n,
+                              max_hits=256) for n in (16, 1024)}
+    rng = np.random.default_rng(13)
+    spec16, spec1024 = specs[16].spec, specs[1024].spec
+    n16 = staged_geometry(spec16).staged_samples
+    every = all_types_window(spec16)
+    return [
+        (spec16, "all@72x16:packets1", staged_windows(spec16, capture, 2)[1], True, False),
+        (spec16, "all@72x16:packets5", staged_windows(spec16, capture, 6)[5], True, False),
+        (spec16, "all@72x16:all_types", every, True, False),
+        (spec16, "all@72x16:random",
+         rng.integers(0, 256, 2 * n16, dtype=np.uint8).view(np.uint16), True, False),
+        (spec16, "all@72x16:dense", every, False, True),
+        (spec1024, "all@72x1024:packets", staged_windows(spec1024, capture, 1)[0], False, False),
+        (specs[16]._big_spec(), "all@72x16-big:packets1", staged_windows(spec16, capture, 2)[1],
+         False, False),
+        (specs[1024]._big_spec(), "all@72x1024-big:packets",
+         staged_windows(spec1024, capture, 1)[0], False, False),
+    ]
+
+
+def search_plain(spec, bits, q6, mask2d) -> torch.Tensor:
+    return pack_results(search_slice(spec, bits, q6, mask2d))
+
+
+#: the search phase's timed cases; the kernels line takes the first, the
+#: cell's shape with a packet of every type kept
+SEARCH_TIMED = ("all@72x16:all_types", "all@72x16:packets1", "all@72x1024:packets")
+
+
+def phase_search(card: str, iq: np.ndarray):
+    dev = torch.device("cuda")
+    kept, raw, inputs = {}, {}, {}
+    for spec, label, host, ahead, dense in search_cases(iq):
+        bits, q6, mask2d = decode_stencil(spec, torch.from_numpy(host).to(dev), False)
+        if dense:
+            mask2d = dense_mask(mask2d, len(spec.groups))
+        inputs[label] = (spec, (bits, q6, mask2d))
+        pairs = [("window", search_kernel(spec, bits, q6, mask2d),
+                  search_plain(spec, bits, q6, mask2d))]
+        if ahead:
+            w, la = spec.window, lookahead_spec(spec)
+            amask = lookahead_mask(spec, bits)
+            pairs.append(("lookahead",
+                          search_kernel(la, bits[w:], q6[w:], amask, lookahead_geometry(spec).fits),
+                          torch.cat([search_plain(la, bits[w:], q6[w:], amask),
+                                     lookahead_guards(spec, amask).view(torch.uint8)])))
+        torch.cuda.synchronize()
+        for name, got, want in pairs:
+            check(got.shape == want.shape, f"search {label} {name}: size {got.shape} {want.shape}")
+            check(torch.equal(got, want), f"search {label} {name}: "
+                  f"{int((got != want).sum())} bytes differ")
+        res = unpack_results(spec, pairs[0][1].cpu().numpy())
+        kept[label] = [int(x) for x in res["counts"][:, 1]]
+        raw[label] = [int(x) for x in res["counts"][:, 0]]
+    check(min(kept["all@72x16:all_types"]) >= 1,
+          f"search: a type kept no packet in the all-types window: {kept['all@72x16:all_types']}")
+    k_gather = inputs["all@72x16:dense"][0].gather_hits
+    check(min(raw["all@72x16:dense"]) > k_gather,
+          f"search: the dense mask overflowed no capacity: {raw['all@72x16:dense']}")
+    emit("search_parity", cases=list(kept), exact=True, kept=kept, raw=raw)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    # The launch floor: three empty kernels replayed from a CUDA graph, as
+    # the search's three are on the main path.
+    empty = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(empty, stream=torch.cuda.Stream(dev)):
+        for _ in range(3):
+            torch.cuda._sleep(0)
+    floor_ms = event_ms(empty.replay)
+    out = {}
+    for label in SEARCH_TIMED:
+        spec, args = inputs[label]
+        ms = event_ms(lambda: search_kernel(spec, *args), flush=flush)
+        k_ms = kernel_ms(lambda: search_kernel(spec, *args), "search_", flush=flush, per_call=3)
+        plain_ms = event_ms(lambda: search_plain(spec, *args), reps=5, flush=flush)
+        n_bytes = spec.window + packed_size(spec)  # the mask read, the buffer written
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        # kernel_ms (the kernels' own device time) is held to the bytes; ms
+        # (by events, the gaps between launches included) to the larger of
+        # the bytes and the launch floor, which is timed the same way.
+        out[label] = {"ms": ms, "kernel_ms": k_ms, "plain_ms": plain_ms, "bound_ms": bytes_ms,
+                      "bound_by": "bytes", "launch_floor_ms": floor_ms, "kept": kept[label]}
+        emit("search_time", card=card, spec=label, kept=kept[label], ms=ms, kernel_ms=k_ms,
+             plain_ms=plain_ms, bytes=n_bytes, bound_ms=bytes_ms, bound_by="bytes",
+             roofline_share=bytes_ms / k_ms, launch_floor_ms=floor_ms,
+             floor_share_events=max(bytes_ms, floor_ms) / ms, ptxas=ptxas_summary("search"))
+    del flush
+    return {"by_shape": out, **out[SEARCH_TIMED[0]]}
 
 
 def results_equal(a, b) -> bool:
@@ -2126,7 +2287,8 @@ def main() -> int:
     # the process launched the window program's kernels more slowly, which
     # showed in the paths' host and span times.
     cli_launches = phase_cli()
-    msgs, (launches, la_feed_launches), feed_host_ms = phase_decode(card, iq, planted)
+    msgs, (launches, la_feed_launches, search_feed_launches), feed_host_ms = phase_decode(
+        card, iq, planted)
     batch_launches, run_window_launches = phase_batch(iq, msgs)
     lookahead_launches = phase_lookahead(card, iq, planted)
     wide_k1, wide_k2, wide = phase_wideband(card)
@@ -2162,6 +2324,7 @@ def main() -> int:
     # After k2: run between k1 and k2, it was followed by a k2 profiler
     # record that held 17 of 20 launches (H100, torch 2.11).
     la = phase_lookahead_time(card, iq)
+    search = phase_search(card, iq)
     del iq
     print(json.dumps({"kernels": [{
         "name": "decode_stencil",
@@ -2202,6 +2365,22 @@ def main() -> int:
         "plain_ms": la["plain_ms"],
         "bound_ms": la["bound_ms"],
         "bound_by": la["bound_by"],
+        "library_ms": None,
+        "card": card,
+    }, {
+        "name": "search",
+        "route": "cuda",
+        "source": "rtlamr_tpu_torch/csrc/search.cu",
+        "replaces": None,
+        "launches": search_feed_launches,
+        "parity": "exact",
+        "ms": search["ms"],
+        "kernel_ms": search["kernel_ms"],
+        "plain_ms": search["plain_ms"],
+        "bound_ms": search["bound_ms"],
+        "bound_by": search["bound_by"],
+        "launch_floor_ms": search["launch_floor_ms"],
+        "kept": search["kept"],
         "library_ms": None,
         "card": card,
     }, {

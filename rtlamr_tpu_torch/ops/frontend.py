@@ -1,22 +1,24 @@
 """The window program and its packed result buffer.
 
 A window decode is the stencil (:func:`~.stencil.decode_stencil`: the CUDA
-kernel on the card) followed by :func:`~.search.search_slice`, with every
-output flattened into ONE u8 buffer so the host fetches a window's results
-in a single device-to-host copy. The layout is byte-identical to the JAX
-package's ``pack_results`` (int32 fields little-endian), so the same
-:func:`unpack_results` reads either.
+kernel on the card) followed by the search, with every output flattened
+into ONE u8 buffer so the host fetches a window's results in a single
+device-to-host copy. The layout (:func:`~.spec.result_layout`) is
+byte-identical to the JAX package's ``pack_results`` (int32 fields
+little-endian), so the same :func:`unpack_results` reads either. On the
+card the search is :func:`~.search.search_kernel`, the hand-written CUDA
+kernels that write that buffer themselves; on the CPU it is
+:func:`~.search.search_slice` and :func:`pack_results`.
 
 On the card, :func:`decode_window_staged_packed` launches K1 as a kernel of
-its own, then replays the search and the packing from a CUDA graph: the
-search is sync-free with every shape fixed by the spec, so after K1 its
-several hundred small launches are one pure function of K1's three outputs.
-The graph is captured once for each (spec, device, current stream), the
-second time that key runs (the first runs eagerly and warms what a capture
-cannot do: the search's cached device tables, cub's scratch, CUDA's lazy
-module loads), and replayed for every later window: K1's outputs are copied
-into its static inputs and its packed buffer is copied out. A CPU tensor
-runs the search eagerly.
+its own, then replays the search from a CUDA graph: the search is sync-free
+with every shape fixed by the spec, so after K1 its launches are one pure
+function of K1's three outputs. The graph is captured once for each (spec,
+device, current stream), the second time that key runs (the first runs
+eagerly and warms what a capture cannot do: the syndrome table's copy to
+the card, the kernels' build and CUDA's lazy module loads), and replayed
+for every later window: K1's outputs are copied into its static inputs and
+its packed buffer is copied out. A CPU tensor runs the search eagerly.
 
 The look-ahead (``decode_window_staged_packed(..., lookahead=True)``)
 searches the next window's first blocks with the bits and R900 digits K1
@@ -32,7 +34,12 @@ first (``2 * (halo + window)`` bytes), as the JAX package's does:
 :func:`decode_window`, :func:`decode_window_staged` and
 :func:`decode_window_packed` take numpy or a tensor to ``device`` (``None``:
 the card) first, and :func:`run_window` stages on the host and returns
-NumPy results.
+NumPy results. On the card the functions that return the result dict
+(:func:`decode_core_staged` and those built on it) read it from the
+kernels' buffer (:func:`result_views`).
+
+K1's library and the search's are built together on a cold start, one
+``nvcc`` each at once (:func:`_stencil`): the window program loads both.
 """
 
 from __future__ import annotations
@@ -47,14 +54,41 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..protocols.r900 import PAYLOAD_SYMBOLS
 from ..utils.observability import span
-from .search import lookahead_guards, search_slice
-from .spec import FrontendSpec, lookahead_spec, stage_host, staged_geometry
+from .search import lookahead_guards, search_kernel, search_slice
+from .spec import (
+    FrontendSpec,
+    lookahead_geometry,
+    lookahead_spec,
+    packed_size,
+    result_layout,
+    stage_host,
+    staged_geometry,
+)
 from .stencil import decode_stencil, lookahead_mask
 
 
+@functools.lru_cache(maxsize=None)
+def _build_window_program() -> None:
+    from .build import build_many
+
+    with span("setup.kernel_load"):
+        build_many(["decode_stencil", "search"])
+
+
+def _stencil(spec: FrontendSpec, staged: torch.Tensor, first: bool):
+    """K1 over a staged window; on the card the window program's two
+    libraries are built (together) before the first launch."""
+    if staged.device.type == "cuda":
+        _build_window_program()
+    return decode_stencil(spec, staged, first)
+
+
 def decode_core_staged(spec: FrontendSpec, staged: torch.Tensor, first: bool):
-    """Stencil + search over one staged u16 window (result dict)."""
-    bits, q6, mask2d = decode_stencil(spec, staged, first)
+    """Stencil + search over one staged u16 window (result dict: on the
+    card, views of the kernels' packed buffer)."""
+    bits, q6, mask2d = _stencil(spec, staged, first)
+    if bits.device.type == "cuda":
+        return result_views(spec, search_kernel(spec, bits, q6, mask2d))
     return search_slice(spec, bits, q6, mask2d)
 
 
@@ -83,7 +117,7 @@ def decode_core(spec: FrontendSpec, iq: torch.Tensor, first: bool):
 
 def frontend_stage(spec: FrontendSpec, iq: torch.Tensor, first: bool):
     """The stencil stage over u8 interleaved IQ: ``(bits, q6, mask2d)``."""
-    return decode_stencil(spec, stage_iq(spec, iq), first)
+    return _stencil(spec, stage_iq(spec, iq), first)
 
 
 def bits_q6(spec: FrontendSpec, iq: torch.Tensor, first: bool):
@@ -112,41 +146,6 @@ def decode_window_staged(spec: FrontendSpec, staged, first: bool,
     return decode_core_staged(spec, _to(staged, device), bool(first))
 
 
-def result_layout(spec: FrontendSpec) -> List[Tuple[str, int, int]]:
-    """(name, byte_offset, byte_size) entries of the packed result buffer.
-
-    Rows are carried at the slice capacity with a per-group keep mask; the
-    host compacts survivors after the fetch (see search_slice)."""
-    k = min(spec.slice_hits, spec.gather_hits)
-    layout = []
-    off = 0
-
-    def add(name, size):
-        nonlocal off
-        layout.append((name, off, size))
-        off += size
-
-    add("counts", 4 * len(spec.groups) * 2)
-    for g, group in enumerate(spec.groups):
-        add(f"idx{g}", 4 * k)
-    for g, group in enumerate(spec.groups):
-        add(f"keep{g}", k)
-    for g, group in enumerate(spec.groups):
-        add(f"pvalid{g}", k)
-    for g, group in enumerate(spec.groups):
-        nbytes = (group.packet_symbols + 7) >> 3
-        add(f"bytes{g}", k * nbytes)
-    for g, group in enumerate(spec.groups):
-        if group.wants_r900:
-            add(f"symbols{g}", k * PAYLOAD_SYMBOLS)
-    add("_total", 0)
-    return layout
-
-
-def packed_size(spec: FrontendSpec) -> int:
-    return result_layout(spec)[-1][1]
-
-
 def _as_u8(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint8:
         return x.reshape(-1)
@@ -163,6 +162,28 @@ def pack_results(res: Dict[str, object]) -> torch.Tensor:
     parts += [_as_u8(x) for x in res["bytes"]]
     parts += [_as_u8(res["symbols"][g]) for g in sorted(res["symbols"])]
     return torch.cat(parts)
+
+
+def result_views(spec: FrontendSpec, buf: torch.Tensor) -> Dict[str, object]:
+    """The :func:`~.search.search_slice` result dict that ``buf``, its
+    packed buffer, holds, as views of ``buf`` on its device: the inverse of
+    :func:`pack_results`."""
+    k = min(spec.slice_hits, spec.gather_hits)
+    out: Dict[str, object] = {"idx": [], "keep": [], "pvalid": [], "bytes": [], "symbols": {}}
+    for name, off, size in result_layout(spec)[:-1]:
+        view = buf[off : off + size]
+        field = name.rstrip("0123456789")
+        if field == "counts":
+            out["counts"] = view.view(torch.int32).reshape(len(spec.groups), 2)
+        elif field == "idx":
+            out["idx"].append(view.view(torch.int32))
+        elif field == "bytes":
+            out["bytes"].append(view.reshape(k, size // k))
+        elif field == "symbols":
+            out["symbols"][int(name[len(field):])] = view.reshape(k, PAYLOAD_SYMBOLS)
+        else:
+            out[field].append(view)
+    return out
 
 
 def lookahead_size(spec: FrontendSpec) -> int:
@@ -182,6 +203,10 @@ def unpack_lookahead(spec: FrontendSpec, buf: np.ndarray) -> Tuple[Dict[str, obj
 
 
 def _search_packed(spec: FrontendSpec, bits, q6, mask2d) -> torch.Tensor:
+    """The search's packed buffer: the kernels on the card, the plain
+    search on the CPU."""
+    if bits.device.type == "cuda":
+        return search_kernel(spec, bits, q6, mask2d)
     return pack_results(search_slice(spec, bits, q6, mask2d))
 
 
@@ -191,12 +216,19 @@ def _lookahead_packed(spec: FrontendSpec, bits, q6, mask2d=None) -> torch.Tensor
     from the window's end on, and the guards."""
     w = spec.window
     ahead2d = lookahead_mask(spec, bits)
-    res = search_slice(lookahead_spec(spec), bits[w:], None if q6 is None else q6[w:], ahead2d)
+    la, q6 = lookahead_spec(spec), None if q6 is None else q6[w:]
+    if bits.device.type == "cuda":
+        return search_kernel(la, bits[w:], q6, ahead2d, lookahead_geometry(spec).fits)
+    res = search_slice(la, bits[w:], q6, ahead2d)
     return torch.cat([pack_results(res), _as_u8(lookahead_guards(spec, ahead2d))])
 
 
+#: the kernels' launch counters that a search graph's replays add to
+_GRAPH_COUNTED = (lookahead_mask, search_kernel)
+
+
 class SearchGraph:
-    """A search and its packing (``search``: the window's, or the
+    """A search's packed buffer (``search``: the window's, or the
     look-ahead's, which computes its own mask) captured as a CUDA graph
     over static copies of K1's outputs; :meth:`replay` runs it on new
     ones."""
@@ -208,16 +240,18 @@ class SearchGraph:
         self.q6 = None if q6 is None else q6.clone()
         self.mask2d = None if mask2d is None else mask2d.clone()
         self.graph = torch.cuda.CUDAGraph()
-        before = lookahead_mask.launches
+        before = [f.launches for f in _GRAPH_COUNTED]
         # A capture stream on the inputs' card (the graph's default one
         # lies on whichever card made the first graph); "thread_local": a
         # CUDA call of another thread does not break the capture.
         with torch.cuda.device(dev), torch.cuda.graph(
                 self.graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
             self.packed = search(spec, self.bits, self.q6, self.mask2d)
-        #: look-ahead mask kernels a replay launches (the capture launched
-        #: none)
-        self.mask_launches, lookahead_mask.launches = lookahead_mask.launches - before, before
+        #: launches of each of ``_GRAPH_COUNTED`` that a replay makes (the
+        #: calls under capture ran nothing, so they are not counted)
+        self.launches = [f.launches - b for f, b in zip(_GRAPH_COUNTED, before)]
+        for f, b in zip(_GRAPH_COUNTED, before):
+            f.launches = b
 
     def replay(self, bits: torch.Tensor, q6: Optional[torch.Tensor],
                mask2d: Optional[torch.Tensor]) -> torch.Tensor:
@@ -230,7 +264,8 @@ class SearchGraph:
         if mask2d is not None:
             self.mask2d.copy_(mask2d)
         self.graph.replay()
-        lookahead_mask.launches += self.mask_launches
+        for f, n in zip(_GRAPH_COUNTED, self.launches):
+            f.launches += n
         return self.packed.clone()
 
 
@@ -285,7 +320,7 @@ def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first:
     key ending in "lookahead", spans ``frontend.lookahead_capture`` and
     ``frontend.lookahead_replay``) and returns its buffer. Call it once the
     window's buffer is on its way to the host."""
-    bits, q6, mask2d = decode_stencil(spec, staged, first)
+    bits, q6, mask2d = _stencil(spec, staged, first)
     buf = _searched(spec, bits, q6, mask2d)
     if not lookahead:
         return buf
@@ -294,8 +329,9 @@ def decode_window_staged_packed(spec: FrontendSpec, staged: torch.Tensor, first:
 
 
 def decode_window_packed(spec: FrontendSpec, iq, first: bool, device: DeviceLike = None):
-    """:func:`decode_window` with every output in one u8 buffer."""
-    return pack_results(decode_window(spec, iq, first, device))
+    """:func:`decode_window` with every output in one u8 buffer (on the
+    card, the kernels' search run eagerly)."""
+    return _search_packed(spec, *frontend_stage(spec, _to(iq, device), bool(first)))
 
 
 def decode_windows_scan(

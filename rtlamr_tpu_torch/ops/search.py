@@ -1,7 +1,13 @@
 """Hit compaction, plateau collapse, packet slicing and checksum gates.
 
-Port of the JAX package's ``ops/frontend.search_slice`` and its helpers in
-plain PyTorch ops. Everything here is enqueued on the device without a host
+:func:`search_slice` is the port of the JAX package's
+``ops/frontend.search_slice`` and its helpers in plain PyTorch ops: the CPU
+path, and the version the card's kernels are held to. On the card the
+window program runs :func:`search_kernel` instead: the hand-written CUDA
+kernels of ``csrc/search.cu``, which write the same packed buffer in three
+launches.
+
+The plain version: everything is enqueued on the device without a host
 sync: no ``nonzero``, no boolean-mask indexing, no ``.item()``. Compaction
 is the fixed-capacity sort of :func:`_compact_true_positions`, and every
 gather index is in range by construction (checked statically in
@@ -19,14 +25,23 @@ launches per byte.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..protocols.r900 import PAYLOAD_SYMBOLS
-from .spec import FrontendSpec, GroupSpec, lookahead_geometry, staged_geometry
+from .spec import (
+    LANES,
+    FrontendSpec,
+    GroupSpec,
+    lookahead_geometry,
+    packed_size,
+    result_layout,
+    staged_geometry,
+)
 
 
 def _strided_matrix(stream: torch.Tensor, stride: int, max_length: int) -> torch.Tensor:
@@ -426,3 +441,153 @@ def lookahead_guards(spec: FrontendSpec, ahead2d: torch.Tensor) -> torch.Tensor:
         torch.where((((flat >> g) & 1) != 0) & (pos >= fit), pos, la.extent).amin()
         for g, fit in enumerate(la.fits)
     ]).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The hand-written kernels (csrc/search.cu)
+
+#: Threads of a CTA and positions of a tile of the kernels' first two passes;
+#: equal to THREADS and TILE in ``csrc/search.cu``.
+THREADS = 256
+TILE = 32 * THREADS
+#: ints of scratch a tile: its counts (N_FIELDS in the .cu)
+TILE_FIELDS = 34
+_MAX_GROUPS, _MAX_VALIDATORS, _MAX_CRCS, _MAX_RANGES, _MAX_BYTES = 8, 16, 16, 4, 128
+
+
+class _Group(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "symbols", "nbytes", "r900", "gated", "v0", "n_validators", "fit",
+        "idx_off", "keep_off", "pvalid_off", "bytes_off", "syms_off",
+    )]
+
+
+class _Validator(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in ("rs", "crc0", "n_crcs")]
+
+
+class _Crc(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_int) for name in ("init", "poly", "residue", "n_ranges")] + [
+        ("lo", ctypes.c_int * _MAX_RANGES), ("hi", ctypes.c_int * _MAX_RANGES)]
+
+
+class _SearchArgs(ctypes.Structure):
+    """The kernels' arguments (``SearchArgs`` in the .cu)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "w", "n_tiles", "n_bits", "n_q6", "sl", "cl4", "base", "bs", "n_groups",
+        "gather_rows", "k_any", "k_gather", "k_slice", "max_span", "guards_off", "n_crcs",
+    )] + [("g", _Group * _MAX_GROUPS), ("v", _Validator * _MAX_VALIDATORS),
+          ("c", _Crc * _MAX_CRCS)]
+
+
+@functools.lru_cache(maxsize=None)
+def _search_args(spec: FrontendSpec, w: int, n_bits: int, n_q6: int,
+                 fits: Optional[tuple]) -> _SearchArgs:
+    """The arguments of a search of ``w`` positions over streams of
+    ``n_bits`` and ``n_q6`` samples; ``fits``: the look-ahead's, whose
+    guards then follow the packed buffer."""
+    if len(spec.groups) > _MAX_GROUPS:
+        raise ValueError(f"search_kernel: at most {_MAX_GROUPS} preamble groups")
+    offsets = {name: off for name, off, _ in result_layout(spec)}
+    a = _SearchArgs()
+    a.w, a.n_tiles, a.n_bits, a.n_q6 = w, -(-w // TILE), n_bits, n_q6
+    a.sl, a.cl4 = spec.symbol_length, 4 * spec.chip_length
+    a.base, a.bs = spec.preamble_length - spec.symbol_length, spec.block_size
+    a.n_groups, a.gather_rows, a.k_gather = len(spec.groups), spec.gather_rows, spec.gather_hits
+    a.k_any = min(len(spec.groups) * spec.gather_hits, spec.gather_rows * LANES)
+    a.k_slice = min(spec.slice_hits, spec.gather_hits)
+    a.guards_off = -1 if fits is None else packed_size(spec)
+    n_v = n_c = 0
+    for g, group in enumerate(spec.groups):
+        nbytes = (group.packet_symbols + 7) >> 3
+        gated = spec.device_validate and group.validators is not None
+        vals = group.validators if gated else ()
+        if nbytes > _MAX_BYTES or len(vals) > 8 or n_v + len(vals) > _MAX_VALIDATORS:
+            raise ValueError("search_kernel: a group's packet or parsers exceed the kernel's")
+        a.g[g] = _Group(
+            group.packet_symbols, nbytes, int(group.wants_r900), int(gated), n_v, len(vals),
+            0 if fits is None else fits[g], offsets[f"idx{g}"], offsets[f"keep{g}"],
+            offsets[f"pvalid{g}"], offsets[f"bytes{g}"],
+            offsets.get(f"symbols{g}", 0))
+        for v in vals:
+            if (v.rs and not group.wants_r900) or n_c + len(v.crcs) > _MAX_CRCS:
+                raise ValueError("search_kernel: a parser's gates exceed the kernel's")
+            a.v[n_v] = _Validator(int(v.rs), n_c, len(v.crcs))
+            n_v += 1
+            for c in v.crcs:
+                if len(c.ranges) > _MAX_RANGES or any(not 0 <= lo <= hi <= nbytes
+                                                      for lo, hi in c.ranges):
+                    raise ValueError("search_kernel: a CRC's byte ranges exceed the kernel's")
+                lo = [lo for lo, _ in c.ranges] + [0] * (_MAX_RANGES - len(c.ranges))
+                hi = [hi for _, hi in c.ranges] + [0] * (_MAX_RANGES - len(c.ranges))
+                a.c[n_c] = _Crc(c.init, c.poly, c.residue, len(c.ranges),
+                                (ctypes.c_int * _MAX_RANGES)(*lo),
+                                (ctypes.c_int * _MAX_RANGES)(*hi))
+                n_c += 1
+    a.max_span = max(PAYLOAD_SYMBOLS if g.wants_r900 else g.packet_symbols for g in spec.groups)
+    a.n_crcs = n_c
+    return a
+
+
+def _search_fn():
+    from .build import load
+
+    fn = load("search").rtlamr_search
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def search_kernel(spec: FrontendSpec, bits: torch.Tensor, q6: Optional[torch.Tensor],
+                  mask2d: torch.Tensor, fits: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """``pack_results(search_slice(spec, bits, q6, mask2d))``, byte for
+    byte, by the CUDA kernels of ``csrc/search.cu`` on the current stream;
+    with ``fits`` (the look-ahead's, :func:`~.spec.lookahead_geometry`)
+    the (G,) int32 :func:`lookahead_guards` of ``mask2d`` follow it.
+
+    CUDA tensors only; a launch sequence (three kernels) is counted in
+    ``search_kernel.launches``. Arguments the kernels do not take, or a
+    failed build or launch, raise."""
+    if bits.device.type != "cuda":
+        raise ValueError(f"search_kernel: CUDA tensors only, got {bits.device}")
+    dev = bits.device
+    w = mask2d.shape[0] * LANES
+    n_q6 = 0 if q6 is None else q6.shape[0]
+    ok = (
+        bits.dtype == torch.uint8 and bits.dim() == 1 and bits.is_contiguous()
+        and mask2d.dtype == torch.uint8 and mask2d.shape[1:] == (LANES,)
+        and mask2d.is_contiguous() and mask2d.data_ptr() % 16 == 0 and mask2d.device == dev
+        and w <= bits.shape[0] <= staged_geometry(spec).lp
+        and (not spec.wants_r900 or (q6 is not None and n_q6 == bits.shape[0] - spec.symbol_length))
+        and (q6 is None or (q6.dtype == torch.uint8 and q6.dim() == 1 and q6.is_contiguous()
+                            and q6.device == dev))
+    )
+    if not ok:
+        raise ValueError(
+            f"search_kernel: want contiguous u8 bits, q6 (bits - SL long where a group wants "
+            f"R900 digits) and a 16-byte aligned (rows, {LANES}) mask on one card, got "
+            f"bits {bits.dtype} {tuple(bits.shape)}, mask {mask2d.dtype} {tuple(mask2d.shape)}"
+            f", q6 {None if q6 is None else (q6.dtype, tuple(q6.shape))}")
+    args = _search_args(spec, w, bits.shape[0], n_q6, None if fits is None else tuple(fits))
+    n_groups = len(spec.groups)
+    out = torch.empty(packed_size(spec) + (0 if fits is None else 4 * n_groups),
+                      dtype=torch.uint8, device=dev)
+    tiles = torch.empty(TILE_FIELDS * args.n_tiles, dtype=torch.int32, device=dev)
+    dropw = torch.empty(n_groups * args.n_tiles * THREADS, dtype=torch.int32, device=dev)
+    rs = _device_table("rs", str(dev))
+    fn = _search_fn()
+    with torch.cuda.device(dev):
+        rc = fn(mask2d.data_ptr(), bits.data_ptr(), None if q6 is None else q6.data_ptr(),
+                tiles.data_ptr(), dropw.data_ptr(), out.data_ptr(), rs.data_ptr(),
+                ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"search_kernel: CUDA error {rc} at launch")
+    search_kernel.launches += 1
+    return out
+
+
+#: launch sequences since the last reset, a CUDA graph's replays included
+#: (ops/frontend.SearchGraph)
+search_kernel.launches = 0

@@ -1,7 +1,8 @@
 """Static window geometry of the decode program.
 
 Pure Python/numpy: the window configuration (:class:`FrontendSpec`), the
-staged-buffer layout (:class:`StagedGeometry`) and host staging. Every field
+staged-buffer layout (:class:`StagedGeometry`), the packed result buffer's
+layout (:func:`result_layout`) and host staging. Every field
 is value-equal to the JAX package's ``ops/frontend.py`` spec, including the
 TPU tile fields (``tile_rows``, ``r_out``, ``r_in``, ``n_tiles``): they fix
 ``staged_samples``, so one staged u16 buffer feeds both packages and the
@@ -17,11 +18,12 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, replace
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..protocols.base import DecoderConfig
+from ..protocols.r900 import PAYLOAD_SYMBOLS
 
 #: Row width of the staged layout (kept for geometry equality with the TPU
 #: build, whose streams are viewed as (rows, 128) lane tiles).
@@ -184,8 +186,6 @@ class LookAhead(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def lookahead_geometry(spec: FrontendSpec) -> LookAhead:
-    from ..protocols.r900 import PAYLOAD_SYMBOLS
-
     geo = staged_geometry(spec)
     w, sl, bs = spec.window, spec.symbol_length, spec.block_size
     base = spec.preamble_length - sl  # first R900 payload digit past a hit
@@ -230,6 +230,42 @@ def resolved_blocks(spec: FrontendSpec, guards: Sequence[int]) -> int:
     for fit, hit in zip(la.fits, guards):
         n = min(n, max(fit, int(hit)) // spec.block_size)
     return n
+
+
+def result_layout(spec: FrontendSpec) -> List[Tuple[str, int, int]]:
+    """(name, byte_offset, byte_size) entries of the packed result buffer.
+
+    Rows are carried at the slice capacity with a per-group keep mask; the
+    host compacts survivors after the fetch (see ops/search.search_slice)."""
+    k = min(spec.slice_hits, spec.gather_hits)
+    layout = []
+    off = 0
+
+    def add(name, size):
+        nonlocal off
+        layout.append((name, off, size))
+        off += size
+
+    add("counts", 4 * len(spec.groups) * 2)
+    for g, group in enumerate(spec.groups):
+        add(f"idx{g}", 4 * k)
+    for g, group in enumerate(spec.groups):
+        add(f"keep{g}", k)
+    for g, group in enumerate(spec.groups):
+        add(f"pvalid{g}", k)
+    for g, group in enumerate(spec.groups):
+        nbytes = (group.packet_symbols + 7) >> 3
+        add(f"bytes{g}", k * nbytes)
+    for g, group in enumerate(spec.groups):
+        if group.wants_r900:
+            add(f"symbols{g}", k * PAYLOAD_SYMBOLS)
+    add("_total", 0)
+    return layout
+
+
+@functools.lru_cache(maxsize=None)
+def packed_size(spec: FrontendSpec) -> int:
+    return result_layout(spec)[-1][1]
 
 
 def stage_host(spec: FrontendSpec, iq: np.ndarray) -> np.ndarray:

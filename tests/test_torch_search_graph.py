@@ -3,7 +3,7 @@
 
 On the card K1 is launched as a kernel of its own and the search after it
 is captured once for each (spec, device, stream) and replayed: the
-``cuda``-marked tests hold the replayed bytes to the eager search's, the
+``cuda``-marked tests hold the replayed bytes to the plain search's, the
 streams to a CPU decoder's, and the launch counts and the K1 tap that the
 benchmark's check reads to one call a window. On the CPU the search runs
 eagerly and no graph is made.
@@ -124,6 +124,36 @@ def test_cpu_packed_bytes_unchanged(names, chip_length, window_blocks):
         assert torch.equal(got, pack_results(search_slice(spec, *stencil_plain(spec, t, i == 0))))
 
 
+def assert_same_results(got, want):
+    """Two search result dicts hold the same tensors: keys, dtypes, shapes
+    and values."""
+    assert got.keys() == want.keys()
+    for key in want:
+        a, b = got[key], want[key]
+        if isinstance(b, torch.Tensor):
+            a, b = [a], [b]
+        if isinstance(b, dict):
+            assert a.keys() == b.keys(), key
+            a, b = [a[g] for g in sorted(a)], [b[g] for g in sorted(b)]
+        assert len(a) == len(b), key
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y), key
+
+
+@pytest.mark.parametrize("names, chip_length, window_blocks", CPU_CASES)
+def test_result_views_invert_pack_results(names, chip_length, window_blocks):
+    """``result_views`` reads back the search's result dict from its packed
+    buffer, the dict the card's window API returns from the kernels'."""
+    dec, _, staged = cpu_windows(names, chip_length, window_blocks)
+    spec = dec.spec
+    for i, row in enumerate(staged):
+        res = search_slice(spec, *stencil_plain(spec, torch.from_numpy(row), i == 0))
+        buf = pack_results(res)
+        views = frontend.result_views(spec, buf)
+        assert_same_results(views, res)
+        assert torch.equal(pack_results(views), buf)
+
+
 @pytest.mark.parametrize("names, chip_length, window_blocks", CPU_CASES)
 def test_cpu_decode_leaves_no_graph(names, chip_length, window_blocks):
     """A CPU decoder's stream and window calls add no key to the graph
@@ -168,11 +198,17 @@ def need_card():
 CUDA_CASES = [(NB_ALL, 16), (NB_ALL, 1024), (("scm",), 16), (("scm",), 1024)]
 
 
+def plain_packed(spec, staged, first):
+    """The plain search's packed buffer over K1's outputs on the card: what
+    the kernels' buffer, replayed or not, is held to."""
+    return pack_results(search_slice(spec, *decode_stencil(spec, staged, first)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("names, window_blocks", CUDA_CASES)
 def test_cuda_replay_equals_eager_and_cpu(names, window_blocks):
     """Six windows with planted packets, the first with ``first``: the
-    replayed packed buffer equals the eager search's, window by window (the
+    replayed packed buffer equals the plain search's, window by window (the
     first call of the key eager, the second captured, the rest replayed),
     and the card decoder's stream equals a CPU decoder's."""
     need_card()
@@ -186,7 +222,7 @@ def test_cuda_replay_equals_eager_and_cpu(names, window_blocks):
     try:
         for i in range(6):
             got = decode_window_staged_packed(spec, staged[i], i == 0)
-            want = pack_results(decode_core_staged(spec, staged[i], i == 0))
+            want = plain_packed(spec, staged[i], i == 0)
             assert torch.equal(got, want), (names, window_blocks, i)
         totals = TRACER.snapshot().totals
     finally:
@@ -226,7 +262,7 @@ def test_cuda_held_results_stay_intact():
     spec = dec.spec
     iq = planted_capture(NB_ALL, 72, spec.window, 4)
     staged = torch.from_numpy(staged_windows(spec, iq, 4)).cuda()
-    want = [pack_results(decode_core_staged(spec, staged[i], i == 0)) for i in range(4)]
+    want = [plain_packed(spec, staged[i], i == 0) for i in range(4)]
     assert not torch.equal(want[2], want[3])
     for i in range(2):  # the key's eager call and its capture
         decode_window_staged_packed(spec, staged[i], i == 0)
@@ -247,7 +283,7 @@ def test_cuda_one_capture_a_key_and_one_launch_a_window():
     forget(spec)
     iq = planted_capture(NB_ALL, 72, spec.window, 3)
     staged = torch.from_numpy(staged_windows(spec, iq, 3)).cuda()
-    want = [pack_results(decode_core_staged(spec, staged[i], i == 0)) for i in range(3)]
+    want = [plain_packed(spec, staged[i], i == 0) for i in range(3)]
     dev = staged.device
     key = (spec, dev, torch.cuda.current_stream(dev).cuda_stream)
     seen = []
@@ -341,7 +377,7 @@ def test_cuda_windows_scan_equals_eager():
     iq = planted_capture(NB_ALL, 72, spec.window, 3)
     staged = torch.from_numpy(staged_windows(spec, iq, 3)).cuda()
     firsts = [True, False, False]
-    want = torch.stack([pack_results(decode_core_staged(spec, staged[i], firsts[i]))
+    want = torch.stack([plain_packed(spec, staged[i], firsts[i])
                         for i in range(3)])
     for _ in range(2):
         before = decode_stencil.launches
@@ -354,7 +390,7 @@ def test_cuda_windows_scan_equals_eager():
 def test_cuda_a_graph_a_card():
     """With the current device left at card 0, each card's windows are
     captured and replayed on that card (the mesh's shards run so), equal to
-    the eager search there. Skips with fewer than two cards."""
+    the plain search there. Skips with fewer than two cards."""
     need_card()
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
@@ -366,7 +402,7 @@ def test_cuda_a_graph_a_card():
     assert torch.cuda.current_device() == 0
     for d in range(torch.cuda.device_count()):
         staged = host.to(f"cuda:{d}")
-        want = [pack_results(decode_core_staged(spec, staged[i], i == 0)) for i in range(3)]
+        want = [plain_packed(spec, staged[i], i == 0) for i in range(3)]
         for i in range(3):
             got = decode_window_staged_packed(spec, staged[i], i == 0)
             assert got.device == staged.device and torch.equal(got, want[i]), (d, i)
