@@ -61,6 +61,7 @@ from ..io.capture import (
     StdinSource,
 )
 from ..io.rtltcp import RtlTcpClient
+from ..ops.channelizer_fused import channelize_requantize_fused
 from ..parallel.distributed import MultiHostDecoder, initialize
 from ..parallel.mesh import MeshDecoder, resolve_devices
 from ..parallel.wideband import WidebandDecoder
@@ -648,9 +649,10 @@ def _run(fs: FlagSet, out, device: Devices, since) -> int:
     # iteration: the stream then stops between two feeds, where the decoder
     # state and ``consumed`` agree.
     sigint = _SigintFlag(bool(ckpt_path))
-    # Each window of the single-card decoder has a root span (cli.window)
-    # while the tracer is on.
-    windows = TRACER.on and type(dec) is WindowDecoder
+    # Each window of the single-card decoders (a super-step of the wideband
+    # one) has a root span (cli.window) while the tracer is on.
+    windows = TRACER.on and type(dec) in (WindowDecoder, WidebandDecoder)
+    k2_launches = channelize_requantize_fused.launches
     dropped_seen = 0
     stop = eof = False
     at_boundary = True  # no feed is under way
@@ -684,8 +686,7 @@ def _run(fs: FlagSet, out, device: Devices, since) -> int:
                                 f"{dropped} bytes dropped so far"
                             )
                         dropped_seen = dropped
-                        if not wideband:
-                            dec.metrics.extra["bytes_dropped"] = dropped
+                        dec.metrics.extra["bytes_dropped"] = dropped
                     at_boundary = False
                     if chunk.size == 0:
                         eof = True
@@ -731,6 +732,11 @@ def _run(fs: FlagSet, out, device: Devices, since) -> int:
         if fs.value("metrics"):
             snap = dec.metrics_snapshot() if wideband else dec.metrics.snapshot()
             _log("metrics:", snap)
+            if wideband:
+                steps = dec.metrics.windows_decoded
+                _log(f"super-steps: {steps}, window programs a super-step: "
+                     f"{snap['windows_decoded'] / max(steps, 1):.1f}, K2 launches: "
+                     f"{channelize_requantize_fused.launches - k2_launches}")
             for line in TRACER.summary(since):
                 _log(line)
         source.close()

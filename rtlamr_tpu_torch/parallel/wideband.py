@@ -13,6 +13,12 @@ bytes:
   channel's carried halo -> N window programs -> one (N, P) packed result
   buffer, fetched with one pinned device-to-host copy.
 
+While the tracer is on (``utils/observability.py``) a super-step is a
+window of the CLI loop: its root ``cli.window`` has the children
+``wideband.stage``, ``wideband.step``, ``wideband.fetch_wait`` and
+``wideband.parse``, and :attr:`WidebandDecoder.metrics` counts the
+super-steps completed in ``windows_decoded``.
+
 Each channel is an independent sample stream with the reference's exact
 single-receiver semantics: its own overlap-save carry, first-window zero
 history, block numbering and adjacent-block digest dedup (main.go:252-292),
@@ -45,6 +51,7 @@ from ..ops.channelizer_fused import channelize_requantize_fused
 from ..ops.frontend import decode_windows_scan
 from ..ops.spec import FrontendSpec, staged_geometry
 from ..protocols.base import Digest, Message, Parser, digest as mk_digest
+from ..utils.observability import Metrics, span, stamp
 
 Triple = Tuple[int, int, Message]
 
@@ -153,6 +160,9 @@ class WidebandDecoder:
         ]
         self.spec = self._chan[0].spec
         self.cfg = self._chan[0].cfg
+        #: the decoder's own counters: ``windows_decoded`` counts the
+        #: super-steps completed (each channel's decoder counts its windows)
+        self.metrics = Metrics()
         self.reset()
 
     def reset(self) -> None:
@@ -198,12 +208,14 @@ class WidebandDecoder:
         return wide_center_hz + channel_offsets_hz(self.chspec, self.cfg.sample_rate)
 
     def metrics_snapshot(self) -> dict:
-        """The counters summed across channels, and the time since the
-        decoder was made (once: every channel's is the same)."""
+        """The counters summed across channels, the decoder's own extras
+        (the CLI's ``bytes_dropped``), and the time since the decoder was
+        made (once: every channel's is the same)."""
         agg: dict = {"elapsed_s": round(self._chan[0].metrics.elapsed(), 3)}
         for c in self._chan:
             for k, v in c.metrics.counters().items():
                 agg[k] = agg.get(k, 0) + v
+        agg.update(self.metrics.extra)
         return agg
 
     # -- state ----------------------------------------------------------------
@@ -353,8 +365,10 @@ class WidebandDecoder:
         The chunk is copied, so the caller may reuse its buffer at once."""
         self._queue.push(wb_bytes)
         out: List[Triple] = []
+        self._stage_since = stamp()
         for chunk in self._queue.take(self.window_bytes):
             out.extend(self._process_chunk(chunk))
+        self._stage_since = 0
         return out
 
     def flush(self) -> List[Triple]:
@@ -379,19 +393,27 @@ class WidebandDecoder:
 
     # -- internals ------------------------------------------------------------
 
+    #: when :meth:`feed` began taking the super-steps it hands to
+    #: :meth:`_process_chunk` (a :func:`stamp`; 0: not timed)
+    _stage_since: int = 0
+
     def _process_chunk(
         self, chunk: np.ndarray, valid_blocks: Optional[int] = None
     ) -> List[Triple]:
         """Dispatch one super-step; complete the previous one (results
         arrive one super-step late; flush() drains the tail)."""
-        u16 = torch.from_numpy(np.ascontiguousarray(chunk).view(np.uint16))
-        if self.device.type == "cuda":
-            # From pageable memory the copy has left ``chunk`` on return.
-            u16 = u16.to(self.device, non_blocking=True)
-        packed, self._wb_hist, self._chan_tail, staged = _wideband_step(
-            self.chspec, self.spec, self._wb_hist, u16, self._chan_tail, self._first
-        )
-        meta = (staged, self._first, valid_blocks, self._window_index)
+        index = self._window_index
+        since, self._stage_since = self._stage_since, 0
+        with span("wideband.stage", index, since):
+            u16 = torch.from_numpy(np.ascontiguousarray(chunk).view(np.uint16))
+            if self.device.type == "cuda":
+                # From pageable memory the copy has left ``chunk`` on return.
+                u16 = u16.to(self.device, non_blocking=True)
+        with span("wideband.step", index):
+            packed, self._wb_hist, self._chan_tail, staged = _wideband_step(
+                self.chspec, self.spec, self._wb_hist, u16, self._chan_tail, self._first
+            )
+        meta = (staged, self._first, valid_blocks, index)
         self._first = False
         self._window_index += 1
         out = self.drain()
@@ -400,14 +422,17 @@ class WidebandDecoder:
 
     def _complete(self, inflight) -> List[Triple]:
         handle, (staged, first, valid_blocks, window_index) = inflight
-        host = fetch(handle)  # ONE fetch for all channels
+        with span("wideband.fetch_wait", window_index):
+            host = fetch(handle)  # ONE fetch for all channels
         out: List[Triple] = []
-        for c, chan in enumerate(self._chan):
-            msgs = chan.complete(host[c], WindowMeta(staged[c], first, valid_blocks,
-                                                     window_index))
-            out.extend((c, b, m) for b, m in msgs)
-        if self.cross_channel_dedup:
-            out = self._xchan.filter(out, on_drop=self._count_ghost)
+        with span("wideband.parse", window_index):
+            for c, chan in enumerate(self._chan):
+                msgs = chan.complete(host[c], WindowMeta(staged[c], first, valid_blocks,
+                                                         window_index))
+                out.extend((c, b, m) for b, m in msgs)
+            if self.cross_channel_dedup:
+                out = self._xchan.filter(out, on_drop=self._count_ghost)
+        self.metrics.windows_decoded += 1
         return out
 
     def _count_ghost(self, c: int) -> None:

@@ -252,6 +252,7 @@ class WidebandMeshDecoder(WidebandDecoder):
                 out.extend((ch, b, m) for b, m in msgs)
         if self.cross_channel_dedup:
             out = self._xchan.filter(out, on_drop=self._count_ghost)
+        self.metrics.windows_decoded += 1
         return out
 
 

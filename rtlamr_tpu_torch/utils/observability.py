@@ -38,6 +38,25 @@ messages; its layers' spans are its children and share its window index:
 - ``pipeline.parse`` unpack, escalation, parse, filter and dedup
 - ``cli.emit``       encode, ring walk, dump and write of its messages
 
+The wideband decoder's window is a super-step (``parallel/wideband.py``):
+its root has
+
+- ``wideband.stage`` the queue's take of the super-step's bytes, their u16
+                     view and the host-to-device enqueue (pageable)
+- ``wideband.step``  K2's launch into the staged batch and the N channels'
+                     window programs' enqueue (``frontend.search_replay``
+                     and K1 inside)
+- ``wideband.fetch_wait`` the wait for the (N, P) packed results on the host
+- ``wideband.parse`` the N channels' ``pipeline.parse`` and the optional
+                     cross-channel dedup
+- ``cli.emit``
+
+Under dispatch-ahead (the throughput preset) a window, narrowband or
+wideband, completes when the next one is dispatched, in the next feed that
+completes a window, and its root closes once its messages are emitted
+there: the root then includes the hold of one window's airtime. With
+``-latency`` each window completes in its own feed.
+
 A window's look-ahead (``WindowDecoder``'s search of the next window's
 first blocks) runs outside the windows' roots: ``frontend.lookahead_replay``
 (or ``frontend.lookahead_capture``) enqueues its search once the window's
