@@ -734,7 +734,8 @@ def _run(fs: FlagSet, out, device: Devices, since) -> int:
             _log("metrics:", snap)
             if wideband:
                 steps = dec.metrics.windows_decoded
-                _log(f"super-steps: {steps}, window programs a super-step: "
+                _log(f"super-steps: {steps} ({dec.metrics.windows_polled} completed by a "
+                     f"poll), window programs a super-step: "
                      f"{snap['windows_decoded'] / max(steps, 1):.1f}, K2 launches: "
                      f"{channelize_requantize_fused.launches - k2_launches}")
             for line in TRACER.summary(since):

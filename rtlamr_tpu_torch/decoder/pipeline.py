@@ -98,6 +98,13 @@ def fetch(handle) -> np.ndarray:
     return host.numpy()
 
 
+def ready(handle) -> bool:
+    """Whether an :func:`enqueue_fetch` copy has landed, so :func:`fetch`
+    would not wait; never waits itself (always True on the CPU)."""
+    event = handle[1]
+    return event is None or event.query()
+
+
 class StagingRing:
     """``depth`` host buffers of one staged window, filled in place by a
     reader (the native transport's ``read_staged``) and dispatched by

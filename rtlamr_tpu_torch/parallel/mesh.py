@@ -97,7 +97,8 @@ def _copy16(dst: torch.Tensor, src: torch.Tensor) -> None:
 
 class _Events(list):
     """The copy events of a super-batch's fetch, one a device, waited for as
-    one (``pipeline.fetch`` calls ``synchronize``)."""
+    one (``pipeline.fetch`` calls ``synchronize``, ``pipeline.ready``
+    ``query``)."""
 
     @classmethod
     def record(cls, devices: Sequence[torch.device]) -> "_Events":
@@ -111,6 +112,10 @@ class _Events(list):
     def synchronize(self) -> None:
         for event in self:
             event.synchronize()
+
+    def query(self) -> bool:
+        """Whether every device's copy has completed; never waits."""
+        return all(event.query() for event in self)
 
 
 class MeshDecoder(WindowDecoder):

@@ -13,11 +13,19 @@ bytes:
   channel's carried halo -> N window programs -> one (N, P) packed result
   buffer, fetched with one pinned device-to-host copy.
 
+Dispatch-ahead: a super-step completes (its buffer waited for and parsed)
+at the first :meth:`WidebandDecoder.feed` that finds its copy has landed on
+the host (:meth:`WidebandDecoder.poll`, which never waits), at the latest
+when the next super-step is dispatched; :meth:`WidebandDecoder.flush`
+completes the last. On the CPU the copy has always landed, so a super-step
+completes at the next feed.
+
 While the tracer is on (``utils/observability.py``) a super-step is a
 window of the CLI loop: its root ``cli.window`` has the children
 ``wideband.stage``, ``wideband.step``, ``wideband.fetch_wait`` and
-``wideband.parse``, and :attr:`WidebandDecoder.metrics` counts the
-super-steps completed in ``windows_decoded``.
+``wideband.parse``, and ``wideband.poll`` when a poll completed it;
+:attr:`WidebandDecoder.metrics` counts the super-steps completed in
+``windows_decoded``, those a poll completed in ``windows_polled``.
 
 Each channel is an independent sample stream with the reference's exact
 single-receiver semantics: its own overlap-save carry, first-window zero
@@ -44,7 +52,7 @@ import torch
 from ..decoder.byte_queue import ByteQueue
 from ..decoder.checkpoint import (WidebandCheckpoint, check_window, geometry_mismatch,
                                   require_boundary, require_kind)
-from ..decoder.pipeline import WindowDecoder, WindowMeta, enqueue_fetch, fetch
+from ..decoder.pipeline import WindowDecoder, WindowMeta, enqueue_fetch, fetch, ready
 from ..device import DeviceLike, resolve_device
 from ..ops.channelizer import ChannelizerSpec, channel_offsets_hz
 from ..ops.channelizer_fused import channelize_requantize_fused
@@ -362,14 +370,30 @@ class WidebandDecoder:
     def feed(self, wb_bytes: np.ndarray) -> List[Triple]:
         """Feed wideband IQ bytes; returns (channel, block, message).
 
-        The chunk is copied, so the caller may reuse its buffer at once."""
+        A super-step in flight whose results have landed completes first
+        (:meth:`poll`), its messages ahead of those of the super-steps
+        the chunk completes. The chunk is copied, so the caller may reuse
+        its buffer at once."""
+        out = self.poll()
         self._queue.push(wb_bytes)
-        out: List[Triple] = []
         self._stage_since = stamp()
         for chunk in self._queue.take(self.window_bytes):
             out.extend(self._process_chunk(chunk))
         self._stage_since = 0
         return out
+
+    def poll(self) -> List[Triple]:
+        """Complete the super-step in flight if its results are on the host;
+        else nothing. Never waits for the card."""
+        if self._inflight is None:
+            return []
+        since = stamp()
+        handle, (_, _, _, window_index) = self._inflight
+        if not ready(handle):
+            return []
+        with span("wideband.poll", window_index, since):
+            self.metrics.windows_polled += 1
+        return self.drain()
 
     def flush(self) -> List[Triple]:
         """Zero-pad and decode remaining full per-channel blocks; drain."""
@@ -400,8 +424,8 @@ class WidebandDecoder:
     def _process_chunk(
         self, chunk: np.ndarray, valid_blocks: Optional[int] = None
     ) -> List[Triple]:
-        """Dispatch one super-step; complete the previous one (results
-        arrive one super-step late; flush() drains the tail)."""
+        """Dispatch one super-step, then complete the one before it if no
+        :meth:`poll` has (flush() drains the last)."""
         index = self._window_index
         since, self._stage_since = self._stage_since, 0
         with span("wideband.stage", index, since):

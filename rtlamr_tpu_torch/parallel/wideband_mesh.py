@@ -33,7 +33,9 @@ scan_windows``); time shard ``x`` owns the windows ``[x*K, (x+1)*K)``.
 Each (channel shard, time shard) decodes its ``C * K`` windows with the
 window program (the decode stencil K1 once a window, then the search); all
 result rows go into one pinned ``(cdev, tdev, C, K, P)`` host buffer, waited
-for once, one super-batch late (dispatch-ahead). Messages are parsed in
+for once: at the first feed that finds every shard's copy landed (the
+inherited ``poll``), at the latest when the next super-batch is dispatched
+(dispatch-ahead). Messages are parsed in
 global window order and, within a window, channel by channel, through each
 channel's :class:`~rtlamr_tpu_torch.decoder.WindowDecoder`, so every
 channel keeps the reference's block numbering and digest dedup; an

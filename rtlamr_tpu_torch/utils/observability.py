@@ -49,13 +49,17 @@ its root has
 - ``wideband.fetch_wait`` the wait for the (N, P) packed results on the host
 - ``wideband.parse`` the N channels' ``pipeline.parse`` and the optional
                      cross-channel dedup
+- ``wideband.poll``  a feed's query that found the super-step's results
+                     landed on the host, when that completed it (not when the
+                     next dispatch or a flush did)
 - ``cli.emit``
 
-Under dispatch-ahead (the throughput preset) a window, narrowband or
-wideband, completes when the next one is dispatched, in the next feed that
-completes a window, and its root closes once its messages are emitted
-there: the root then includes the hold of one window's airtime. With
-``-latency`` each window completes in its own feed.
+Under dispatch-ahead (the throughput preset) a super-step completes in the
+first feed whose poll finds its results on the host, and its root closes
+once its messages are emitted there. A ``WindowDecoder`` window completes
+when the next one is dispatched, in the next feed that completes a window:
+its root then includes the hold of one window's airtime. With ``-latency``
+each window completes in its own feed.
 
 A window's look-ahead (``WindowDecoder``'s search of the next window's
 first blocks) runs outside the windows' roots: ``frontend.lookahead_replay``
@@ -96,6 +100,10 @@ class Metrics:
     messages_dropped_filter: int = 0
     messages_dropped_dup: int = 0
     hit_overflows: int = 0
+    #: windows completed by a poll that found their fetch landed, before
+    #: the next dispatch (``WidebandDecoder.poll``); a decoder's own count,
+    #: so not among the :meth:`counters` that sum across decoders
+    windows_polled: int = 0
     extra: Dict[str, float] = field(default_factory=dict)
 
     def elapsed(self) -> float:
